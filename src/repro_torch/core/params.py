@@ -1,0 +1,152 @@
+"""Parameter dataclasses of the device search and of the segment
+fields ``device_search.from_segment`` reads.
+
+Copies of ``repro.core.params`` / ``repro.configs.starling_segment``
+with the same field names, so one set of values drives both packages.
+Only the fields this package reads are kept. ``fetch_impl`` takes
+``"fused"`` (the CUDA round kernels) or ``"ref"`` (the plain PyTorch
+round stage, the counterpart of the JAX ``"jnp"``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphParams:
+    max_degree: int = 32          # Λ
+
+
+@dataclasses.dataclass(frozen=True)
+class LayoutParams:
+    block_kb: float = 4.0         # η
+
+    def verts_per_block(self, dim: int, max_degree: int,
+                        dtype_bytes: int = 4) -> int:
+        """ε = ⌊η/γ⌋ with γ = D·b + 4 (λ) + Λ·4 bytes (Example 2)."""
+        gamma = dim * dtype_bytes + 4 + max_degree * 4
+        eps = int(self.block_kb * 1024) // gamma
+        if eps < 1:
+            raise ValueError(
+                f"vertex ({gamma}B) does not fit a {self.block_kb}KB block")
+        return eps
+
+
+@dataclasses.dataclass(frozen=True)
+class PQParams:
+    num_subspaces: int = 8        # M
+    num_centroids: int = 256      # K (uint8 codes)
+    train_iters: int = 12
+    train_sample: int = 16384
+    seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class NavGraphParams:
+    sample_ratio: float = 0.1     # μ
+    max_degree: int = 20          # Λ'
+    seed: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheParams:
+    """The device tier-0 budget fields (``CacheParams.tier0_*``)."""
+    tier0_bytes: int = 0          # absolute device hot-tile budget
+    tier0_frac: float = 0.0       # fraction of disk_bytes (if bytes == 0)
+
+    def __post_init__(self):
+        if not (0.0 <= self.tier0_frac <= 1.0) or self.tier0_bytes < 0:
+            raise ValueError(
+                "tier0_frac must be in [0, 1] and tier0_bytes >= 0")
+
+    def resolve_tier0_budget(self, disk_bytes: int) -> int:
+        """Device hot-tile budget in bytes (Eq. 10's C_tier0 charge)."""
+        if self.tier0_bytes > 0:
+            return self.tier0_bytes
+        return int(self.tier0_frac * disk_bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentParams:
+    graph: GraphParams = dataclasses.field(default_factory=GraphParams)
+    layout: LayoutParams = dataclasses.field(default_factory=LayoutParams)
+    pq: PQParams = dataclasses.field(default_factory=PQParams)
+    nav: NavGraphParams = dataclasses.field(default_factory=NavGraphParams)
+    cache: CacheParams = dataclasses.field(default_factory=CacheParams)
+    metric: str = "l2"            # l2 | ip
+
+    def __post_init__(self):
+        if self.metric not in ("l2", "ip"):
+            raise ValueError(f"unknown metric {self.metric!r} (l2 | ip)")
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceSearchParams:
+    """Batched device-search knobs (``device_search.device_anns``).
+
+    ``fetch_width`` (F) fetches the F best unvisited candidates' blocks
+    per round trip. ``compact_frac`` > 0 stably repacks live queries to
+    the front once the live fraction drops below it. ``trace_rounds``
+    returns the per-round log. ``pipeline_dma`` is kept for the
+    accounting (``batch_stats()["dma_pipelined"]``): on the card the
+    gather kernel's CTA parallelism takes the place of the TPU's
+    two-slot DMA schedule. ``round_tile_cap`` caps the round kernel's
+    query tile (the idle-skip and intra/cross-tile accounting unit).
+    ``speculate`` adds the spec_hits/spec_wasted accounting.
+    ``fuse_union`` runs the batch union inside the gather kernel
+    (``gather_union``) instead of as plain ops + ``gather_unique``.
+    Results are identical for every setting of the last five."""
+    k: int = 10
+    candidates: int = 64          # Γ
+    sigma: float = 0.3            # σ
+    max_hops: int = 128
+    fetch_width: int = 1          # F
+    nav_beam: int = 8
+    nav_hops: int = 12
+    entry_points: int = 4
+    tier0_frac: float = 0.0
+    fetch_impl: str = "fused"     # fused (CUDA kernels) | ref (plain)
+    compact_frac: float = 0.0
+    trace_rounds: bool = False
+    pipeline_dma: bool = True
+    round_tile_cap: int = 0
+    speculate: bool = False
+    fuse_union: bool = True
+
+    def __post_init__(self):
+        if self.k < 1 or self.candidates < self.k:
+            raise ValueError("need candidates >= k >= 1")
+        if not (0.0 <= self.sigma <= 1.0
+                and 0.0 <= self.tier0_frac <= 1.0):
+            raise ValueError("sigma and tier0_frac must be in [0, 1]")
+        if self.fetch_width < 1 or self.max_hops < 1:
+            raise ValueError("fetch_width and max_hops must be >= 1")
+        if self.fetch_impl not in ("fused", "ref"):
+            raise ValueError(
+                f"unknown fetch_impl {self.fetch_impl!r} (fused | ref)")
+        if not (0.0 <= self.compact_frac <= 1.0):
+            raise ValueError("compact_frac must be in [0, 1]")
+        if self.round_tile_cap < 0:
+            raise ValueError("round_tile_cap must be >= 0 (0 = BQ)")
+
+
+# the container-scale bench segment (repro.configs.starling_segment
+# SEGMENT_BENCH) with the device tier-0 hot-tile pack at 10% of the
+# block file — the fields the port reads
+SEGMENT_BENCH = SegmentParams(
+    graph=GraphParams(max_degree=24),
+    layout=LayoutParams(block_kb=4.0),
+    pq=PQParams(num_subspaces=8, num_centroids=256, train_iters=12),
+    nav=NavGraphParams(sample_ratio=0.1, max_degree=12),
+    metric="l2",
+)
+SEGMENT_BENCH_DEVICE = dataclasses.replace(
+    SEGMENT_BENCH, cache=CacheParams(tier0_frac=0.10))
+
+# the divergence-aware batched preset: 2-wide fetch, compaction under
+# 25% live, deep safety valve (repro.configs.starling_segment)
+DEVICE_SEARCH_BATCH = DeviceSearchParams(candidates=48, max_hops=256,
+                                         fetch_width=2, compact_frac=0.25)
+# the serving preset (repro.serving.coordinator.SERVE_DEVICE_SEARCH)
+SERVE_DEVICE_SEARCH = dataclasses.replace(DEVICE_SEARCH_BATCH,
+                                          candidates=64)

@@ -1,0 +1,98 @@
+"""Build and load the CUDA kernels of this package.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into
+a shared library with a plain C interface, in ``build/kernels/`` at the
+root of the checkout (``.gitignore`` lists ``build/``), and loaded with
+``ctypes``. The library's file name carries a hash of its source, so an
+edited source is rebuilt and an unchanged one is reused. Nothing is
+compiled or loaded when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+P, I = ctypes.c_void_p, ctypes.c_int
+# C signatures of every entry point, by source
+SIGNATURES = {
+    "tier0_fetch": {
+        "t0_union": [P, I, P, P, P],
+        "t0_gather": [P, I, P, P, P, I, I, I, I, P, P, P, P],
+        "t0_rank": [P, P, P, P, I, P, I, P, P, P, I, P, P, P, I, I, I, I,
+                    I, I, I, I, P, P, P, P, P, P],
+    },
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "a machine with the CUDA toolkit")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{tag[:12]}.so"
+
+
+def build(names: List[str] = None) -> Dict[str, Path]:
+    """Compile every named source that has no current library, one
+    ``nvcc`` per source, all started together. Returns the paths."""
+    names = list(SIGNATURES) if names is None else names
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {n: _lib_path(n) for n in names}
+    procs = []
+    for name, out in todo.items():
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    errors = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"nvcc failed on {name}.cu:\n{log.decode()}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return todo
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = build([name])[name]
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code}")

@@ -1,0 +1,40 @@
+"""Dispatch wrappers around the round kernels: pad the batch to the
+rank pass's query tile and strip the padding from the outputs (copy of
+``repro.kernels.ops.round_tile`` / ``fused_round``)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import tier0_fetch as _t0
+
+
+def round_tile(qn: int, cap: int = 0) -> int:
+    """The query-tile size of the rank pass for a batch of ``qn``
+    (``cap`` > 0 overrides the ``BQ`` ceiling). Dedup is batch-scope;
+    the tile is the idle-skip / compaction granularity and the intra-
+    vs cross-tile boundary of the ``dedup_saved`` accounting."""
+    lim = cap if cap > 0 else _t0.BQ
+    return min(lim, max(8, qn))
+
+
+def fused_round(queries: torch.Tensor, u: torch.Tensor,
+                block_of: torch.Tensor, hot_slot_of: torch.Tensor,
+                hot_vecs: torch.Tensor, hot_vid: torch.Tensor,
+                hot_nbrs: torch.Tensor, vecs: torch.Tensor,
+                vid: torch.Tensor, nbrs: torch.Tensor, n_expand: int,
+                metric: str = "l2", bq: int = None,
+                fuse_union: bool = True):
+    """The round stage at any batch size: padded query rows carry
+    ``u = -1`` (converged), so all-pad tiles take the rank kernel's
+    skip path; their outputs are sliced off."""
+    qn = queries.shape[0]
+    bq = bq or round_tile(qn)
+    pad = (-qn) % bq
+    qp = F.pad(queries, (0, 0, 0, pad)) if pad else queries
+    up = F.pad(u, (0, 0, 0, pad), value=-1) if pad else u
+    outs = _t0.fused_round(qp.contiguous(), up.contiguous(), block_of,
+                           hot_slot_of, hot_vecs, hot_vid, hot_nbrs, vecs,
+                           vid, nbrs, n_expand, metric=metric, bq=bq,
+                           fuse_union=fuse_union)
+    return tuple(o[:qn] for o in outs)

@@ -1,0 +1,116 @@
+"""Plain PyTorch versions of the round kernels.
+
+``fused_round_ref`` is the straight-gather oracle of the whole round
+stage (``repro.kernels.ref.fused_round_ref``); the search loop runs it
+under ``fetch_impl="ref"``. The other three are the plain versions of
+the CUDA kernels in ``kernels.tier0_fetch``: their wrappers run them
+for CPU tensors, and ``chip_smoke.py`` holds each kernel against its
+plain version on the card. Every index that the JAX package clamps is
+clamped here too (JAX clamps out-of-range gathers; torch would raise).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import dedup
+
+
+def sq_dists(q: torch.Tensor, t: torch.Tensor, metric: str) -> torch.Tensor:
+    """q [Q, D] vs t [Q, E, D] -> [Q, E] f32: sum of squared
+    differences, or the negated inner product for ``ip``."""
+    q32, t32 = q.to(torch.float32), t.to(torch.float32)
+    if metric == "ip":
+        return -torch.sum(t32 * q32[:, None, :], dim=-1)
+    return torch.sum(torch.square(t32 - q32[:, None, :]), dim=-1)
+
+
+def selection_order(dd: torch.Tensor, vid: torch.Tensor, u: torch.Tensor,
+                    n_expand: int):
+    """The masked selection key of a round and its stable top-``n_expand``
+    order: targets (a slot holding a picked id) first at -inf, then the
+    valid residents by distance, invalid slots at +inf."""
+    eps = vid.shape[1] // u.shape[1]
+    f_valid = torch.repeat_interleave(u >= 0, eps, dim=1)
+    slot_valid = (vid >= 0) & f_valid
+    dd_m = torch.where(slot_valid, dd, torch.full_like(dd, float("inf")))
+    is_target = (vid[:, :, None] == u[:, None, :]).any(-1) & (vid >= 0)
+    sel_key = torch.where(is_target, torch.full_like(dd, float("-inf")),
+                          dd_m)
+    order = torch.argsort(sel_key, dim=1, stable=True)[:, :n_expand]
+    return sel_key, order.to(torch.int32)
+
+
+def gather_unique_ref(uniq: torch.Tensor, vecs: torch.Tensor,
+                      vid: torch.Tensor, nbrs: torch.Tensor):
+    """Copy each listed block's payload: uniq [R] ->
+    (tiles [R, eps, D], vid [R, eps], nbrs [R, eps, Lam])."""
+    idx = uniq.long().clamp(0, vecs.shape[0] - 1)
+    return vecs[idx], vid[idx], nbrs[idx]
+
+
+def gather_union_ref(b: torch.Tensor, vecs: torch.Tensor,
+                     vid: torch.Tensor, nbrs: torch.Tensor):
+    """Whole-batch union of the target blocks b [Q, F], then one copy
+    of each distinct block: -> (uniq [R], rank2d [Q, F] i32, tiles,
+    vid, nbrs) with R = Q*F; rows past the distinct count hold
+    block 0."""
+    uniq, rank = dedup.sorted_unique_ranks(b.reshape(-1))
+    tv, ti, tn = gather_unique_ref(uniq, vecs, vid, nbrs)
+    return uniq, rank.reshape(b.shape), tv, ti, tn
+
+
+def fused_round_rank_ref(queries, u, rank2d, uniq, hot_slot_of, hot_vecs,
+                         hot_vid, hot_nbrs, tv, ti, tn, n_expand: int,
+                         metric: str = "l2", bq: int = 128):
+    """Pass 2b of the round (``repro.kernels.tier0_fetch._rank_kernel``):
+    probe the tier-0 map for the union, take each distinct block's hot
+    or cold tile, broadcast it through ``rank2d``, rank it, and order
+    the expansions. A query tile of ``bq`` rows whose ``u`` are all -1
+    gets the sentinels dd=0, vid=nbrs=-1, hit=0, order=0."""
+    qn, f = u.shape
+    eps = tv.shape[1]
+    s = hot_slot_of[uniq.long().clamp(0, hot_slot_of.shape[0] - 1)]
+    hot_u = s >= 0
+    ss = s.long().clamp(0, hot_vecs.shape[0] - 1)
+    tiles_u = torch.where(hot_u[:, None, None], hot_vecs[ss], tv)
+    vid_u = torch.where(hot_u[:, None], hot_vid[ss], ti)
+    nbrs_u = torch.where(hot_u[:, None, None], hot_nbrs[ss], tn)
+    rk = rank2d.reshape(-1).long().clamp(0, uniq.shape[0] - 1)
+    tiles = tiles_u[rk].reshape(qn, f * eps, -1)
+    vid = vid_u[rk].reshape(qn, f * eps)
+    nbrs = nbrs_u[rk].reshape(qn, f * eps, -1)
+    hit = hot_u[rk].reshape(qn, f).to(torch.int32)
+    dd = sq_dists(queries, tiles, metric)
+    _, order = selection_order(dd, vid, u, n_expand)
+    live = torch.repeat_interleave(
+        (u >= 0).reshape(qn // bq, bq * f).any(1), bq)      # [Q]
+    return (torch.where(live[:, None], dd, torch.zeros_like(dd)),
+            torch.where(live[:, None], vid, torch.full_like(vid, -1)),
+            torch.where(live[:, None, None], nbrs,
+                        torch.full_like(nbrs, -1)),
+            torch.where(live[:, None], hit, torch.zeros_like(hit)),
+            torch.where(live[:, None], order, torch.zeros_like(order)))
+
+
+def fused_round_ref(queries, u, block_of, hot_slot_of, hot_vecs, hot_vid,
+                    hot_nbrs, vecs, vid, nbrs, n_expand: int,
+                    metric: str = "l2"):
+    """Oracle of the whole round stage: straight per-request gathers, no
+    dedup (dedup only changes which gather produced a tile, never its
+    payload). u [Q, F] picked ids (-1 = converged/empty) ->
+    (dists [Q, F*eps], vid [Q, F*eps], nbrs [Q, F*eps, Lam],
+    hit [Q, F] i32, order [Q, n_expand] i32)."""
+    qn, f = u.shape
+    eps = vecs.shape[1]
+    b = block_of[u.long().clamp_min(0)].long()               # [Q, F]
+    slot = hot_slot_of[b]
+    hit = slot >= 0
+    s_safe = slot.long().clamp_min(0)
+    tiles = torch.where(hit[:, :, None, None], hot_vecs[s_safe], vecs[b])
+    vid_g = torch.where(hit[:, :, None], hot_vid[s_safe],
+                        vid[b]).reshape(qn, f * eps)
+    nbrs_g = torch.where(hit[:, :, None, None], hot_nbrs[s_safe],
+                         nbrs[b]).reshape(qn, f * eps, -1)
+    dd = sq_dists(queries, tiles.reshape(qn, f * eps, -1), metric)
+    _, order = selection_order(dd, vid_g, u, n_expand)
+    return dd, vid_g, nbrs_g, hit.to(torch.int32), order

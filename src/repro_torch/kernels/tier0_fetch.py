@@ -1,0 +1,192 @@
+"""The round kernels of the batched device search (CUDA, ``csrc/
+tier0_fetch.cu``) and their wrappers.
+
+One search round, for the F candidates each query picked:
+
+  * ``gather_union`` — the whole-batch sorted-unique union of the
+    target blocks plus the slot -> unique-rank map (one CTA), then one
+    copy of each distinct block's vectors, ids and neighbour rows (one
+    CTA per union row). Replaces ``repro.kernels.tier0_fetch.
+    gather_union``.
+  * ``gather_unique`` — the copy alone, for a union computed by plain
+    ops (the two-pass path, ``fuse_union=False``). Replaces
+    ``gather_unique``.
+  * ``fused_round_rank`` — pass 2b: tier-0 probe, hot/cold tile pick,
+    broadcast through the rank map, exact distances and the stable
+    top-``n_expand`` expansion order, one CTA per query; an all-idle
+    query tile writes sentinels. Replaces ``fused_round``'s
+    ``_rank_kernel``.
+
+``fused_round`` chains them as the JAX ``fused_round`` does. Every
+wrapper runs its plain version (``kernels.ref``) when its tensors lie on
+the CPU; for CUDA tensors it launches its kernel, or raises. Each
+launch adds one to ``LAUNCHES[<wrapper name>]``; nothing else does.
+The kernels are bound by the bytes they move (block payloads), see the
+note at the top of the CUDA source.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, dedup, ref
+
+BQ = 128          # query-tile size of the rank pass
+MAX_UNION = 4096  # largest batch union (Q*F) the one-CTA union kernel sorts
+
+LAUNCHES = {"gather_union": 0, "fused_round_rank": 0, "gather_unique": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _require(what: str, **tensors) -> None:
+    """Validate the CUDA operands: one card, contiguous, right dtypes."""
+    device = None
+    for name, (t, dtype) in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} is on {t.device}, not cuda")
+        if device is not None and t.device != device:
+            raise ValueError(f"{what}: operands on {device} and {t.device}")
+        device = t.device
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}, needs {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+
+
+def _store_operands(vecs, vid, nbrs):
+    return {"vecs": (vecs, torch.float32), "vid": (vid, torch.int32),
+            "nbrs": (nbrs, torch.int32)}
+
+
+def _launch_gather(uniq, vecs, vid, nbrs):
+    rho, eps, d = vecs.shape
+    lam = nbrs.shape[2]
+    r = uniq.shape[0]
+    tv = torch.empty((r, eps, d), dtype=torch.float32, device=vecs.device)
+    ti = torch.empty((r, eps), dtype=torch.int32, device=vecs.device)
+    tn = torch.empty((r, eps, lam), dtype=torch.int32, device=vecs.device)
+    lib = _build.load("tier0_fetch")
+    _build.check(lib.t0_gather(
+        _ptr(uniq), r, _ptr(vecs), _ptr(vid), _ptr(nbrs), rho, eps, d, lam,
+        _ptr(tv), _ptr(ti), _ptr(tn), _stream()), "t0_gather")
+    return tv, ti, tn
+
+
+def gather_unique(uniq: torch.Tensor, vecs: torch.Tensor,
+                  vid: torch.Tensor, nbrs: torch.Tensor):
+    """uniq [R] i32 block ids -> (tiles [R, eps, D] f32, vid [R, eps]
+    i32, nbrs [R, eps, Lam] i32): one copy of each listed block."""
+    if uniq.device.type == "cpu":
+        return ref.gather_unique_ref(uniq, vecs, vid, nbrs)
+    _require("gather_unique", uniq=(uniq, torch.int32),
+             **_store_operands(vecs, vid, nbrs))
+    out = _launch_gather(uniq, vecs, vid, nbrs)
+    LAUNCHES["gather_unique"] += 1
+    return out
+
+
+def gather_union(b: torch.Tensor, vecs: torch.Tensor, vid: torch.Tensor,
+                 nbrs: torch.Tensor):
+    """b [Q, F] i32 target blocks -> (uniq [R] i32, rank2d [Q, F] i32,
+    tiles [R, eps, D], vid [R, eps], nbrs [R, eps, Lam]) with R = Q*F:
+    the ascending distinct blocks (0 past the distinct count), each
+    slot's rank among them, and one copy of each union row's block."""
+    if b.device.type == "cpu":
+        return ref.gather_union_ref(b, vecs, vid, nbrs)
+    _require("gather_union", b=(b, torch.int32),
+             **_store_operands(vecs, vid, nbrs))
+    qn, f = b.shape
+    r = qn * f
+    if r > MAX_UNION:
+        raise ValueError(f"gather_union: batch union of {r} slots exceeds "
+                         f"the one-CTA sort's {MAX_UNION}")
+    uniq = torch.empty(r, dtype=torch.int32, device=b.device)
+    rank2d = torch.empty((qn, f), dtype=torch.int32, device=b.device)
+    lib = _build.load("tier0_fetch")
+    _build.check(lib.t0_union(_ptr(b), r, _ptr(uniq), _ptr(rank2d),
+                              _stream()), "t0_union")
+    tv, ti, tn = _launch_gather(uniq, vecs, vid, nbrs)
+    LAUNCHES["gather_union"] += 1
+    return uniq, rank2d, tv, ti, tn
+
+
+def fused_round_rank(queries, u, rank2d, uniq, hot_slot_of, hot_vecs,
+                     hot_vid, hot_nbrs, tv, ti, tn, n_expand: int,
+                     metric: str = "l2", bq: int = BQ):
+    """Pass 2b of the round -> (dd [Q, F*eps] f32, vid [Q, F*eps] i32,
+    nbrs [Q, F*eps, Lam] i32, hit [Q, F] i32, order [Q, n_expand] i32).
+    Q must be a multiple of ``bq``."""
+    qn, f = u.shape
+    if qn % bq:
+        raise ValueError(f"fused_round_rank: {qn} rows is not a multiple "
+                         f"of the tile {bq}")
+    if queries.device.type == "cpu":
+        return ref.fused_round_rank_ref(
+            queries, u, rank2d, uniq, hot_slot_of, hot_vecs, hot_vid,
+            hot_nbrs, tv, ti, tn, n_expand, metric=metric, bq=bq)
+    _require("fused_round_rank", queries=(queries, torch.float32),
+             u=(u, torch.int32), rank2d=(rank2d, torch.int32),
+             uniq=(uniq, torch.int32), hot_slot_of=(hot_slot_of, torch.int32),
+             hot_vecs=(hot_vecs, torch.float32),
+             hot_vid=(hot_vid, torch.int32),
+             hot_nbrs=(hot_nbrs, torch.int32),
+             **_store_operands(tv, ti, tn))
+    r, eps, d = tv.shape
+    lam = tn.shape[2]
+    if n_expand > f * eps:
+        raise ValueError(f"fused_round_rank: n_expand {n_expand} exceeds "
+                         f"the round's {f * eps} slots")
+    dev = queries.device
+    dd = torch.empty((qn, f * eps), dtype=torch.float32, device=dev)
+    vid = torch.empty((qn, f * eps), dtype=torch.int32, device=dev)
+    nbrs = torch.empty((qn, f * eps, lam), dtype=torch.int32, device=dev)
+    hit = torch.empty((qn, f), dtype=torch.int32, device=dev)
+    order = torch.empty((qn, n_expand), dtype=torch.int32, device=dev)
+    lib = _build.load("tier0_fetch")
+    _build.check(lib.t0_rank(
+        _ptr(queries), _ptr(u), _ptr(rank2d), _ptr(uniq), r,
+        _ptr(hot_slot_of), hot_slot_of.shape[0], _ptr(hot_vecs),
+        _ptr(hot_vid), _ptr(hot_nbrs), hot_vecs.shape[0], _ptr(tv),
+        _ptr(ti), _ptr(tn), qn, f, eps, d, lam, n_expand, bq,
+        1 if metric == "ip" else 0, _ptr(dd), _ptr(vid), _ptr(nbrs),
+        _ptr(hit), _ptr(order), _stream()), "t0_rank")
+    LAUNCHES["fused_round_rank"] += 1
+    return dd, vid, nbrs, hit, order
+
+
+def fused_round(queries, u, block_of, hot_slot_of, hot_vecs, hot_vid,
+                hot_nbrs, vecs, vid, nbrs, n_expand: int,
+                metric: str = "l2", bq: int = BQ,
+                fuse_union: bool = True):
+    """One search round's fetch pipeline, batch-scope.
+
+    queries [Q, D] f32; u [Q, F] i32 picked ids (-1 = converged/empty);
+    block_of [N]; hot_slot_of [rho]; hot pack [H, eps, ...]; cold store
+    [rho, eps, ...] -> (dists [Q, F*eps], vid [Q, F*eps], nbrs
+    [Q, F*eps, Lam], hit [Q, F] i32, order [Q, n_expand] i32). Idle
+    slots fold onto block 0's rank; their outputs are masked or skipped
+    downstream. ``fuse_union`` runs the union inside ``gather_union``;
+    otherwise it is plain ops followed by ``gather_unique`` (the
+    two-pass twin). Both give the same outputs."""
+    qn, f = u.shape
+    b = block_of[u.long().clamp_min(0)]           # [Q, F] target blocks
+    if fuse_union:
+        uniq, rank2d, tv, ti, tn = gather_union(b, vecs, vid, nbrs)
+    else:
+        uniq, rank = dedup.sorted_unique_ranks(b.reshape(-1))
+        rank2d = rank.reshape(qn, f)
+        tv, ti, tn = gather_unique(uniq, vecs, vid, nbrs)
+    return fused_round_rank(queries, u, rank2d, uniq, hot_slot_of,
+                            hot_vecs, hot_vid, hot_nbrs, tv, ti, tn,
+                            n_expand, metric=metric, bq=bq)

@@ -12,6 +12,10 @@ def pytest_configure(config):
         "markers",
         "slow: build-heavy test (segment/graph builds, jit compiles); "
         "deselected by `make test-fast` / the fast CI lane")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the port's hand-written kernels); "
+        "skips without one")
 
 from repro.core.params import (GraphParams, LayoutParams, NavGraphParams,
                                PQParams, SegmentParams)

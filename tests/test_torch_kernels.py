@@ -1,0 +1,271 @@
+"""The port's round kernels and dedup helpers (``repro_torch.kernels``)
+against the JAX package, on the same numpy inputs.
+
+On the CPU the port's wrappers run their plain versions; the JAX
+kernels run in interpret mode, as the JAX package's own tests run them.
+Integer outputs must be equal. Distances agree within atol 1e-5 /
+rtol 1e-6: the JAX reference itself differs between its Pallas
+interpreter and XLA by up to 3.8e-6 (ROADMAP §C), and torch sums in
+another order. The expansion order is compared exactly, after checking
+that the data has no near-ties closer than 1e-4.
+
+The ``gpu`` tests hold each CUDA kernel against its plain version; they
+skip without a card. JAX is imported inside the tests that use it, so
+the ``gpu`` tests also run where JAX is not installed.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import dedup as TD
+from repro_torch.kernels import ops as TO
+from repro_torch.kernels import ref as TR
+from repro_torch.kernels import tier0_fetch as TT
+
+ATOL, RTOL = 1e-5, 1e-6
+
+
+def _keys(r, lo, hi, seed):
+    return np.random.default_rng(seed).integers(lo, hi, (r,)).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("r,lo,hi,seed", [
+    (8, 0, 4, 0), (64, 0, 12, 1), (96, 0, 96, 2), (128, 0, 3, 3),
+    (16, 0, 1, 4), (300, -40, 40, 5), (257, -3, 1000, 6)])
+def test_sorted_unique_ranks_matches_jax(r, lo, hi, seed):
+    import jax.numpy as jnp
+    from repro.kernels import dedup as JD
+    flat = _keys(r, lo, hi, seed)
+    uj, rj = JD.sorted_unique_ranks(jnp.asarray(flat))
+    ut, rt = TD.sorted_unique_ranks(torch.as_tensor(flat))
+    np.testing.assert_array_equal(ut.numpy(), np.asarray(uj))
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(rj))
+    assert ut.dtype == torch.int32 and rt.dtype == torch.int32
+
+
+@pytest.mark.parametrize("r,hi,seed", [(8, 4, 0), (64, 12, 1),
+                                       (96, 96, 2), (128, 3, 3),
+                                       (16, 1, 4)])
+def test_union_slot_map_matches_jax(r, hi, seed):
+    import jax.numpy as jnp
+    from repro.kernels import dedup as JD
+    flat = _keys(r, 0, hi, seed)
+    uj, rj = JD.union_slot_map(jnp.asarray(flat))
+    ut, rt = TD.union_slot_map(torch.as_tensor(flat))
+    np.testing.assert_array_equal(ut.numpy(), np.asarray(uj))
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(rj))
+    us, rs = TD.sorted_unique_ranks(torch.as_tensor(flat))
+    assert torch.equal(ut, us) and torch.equal(rt, rs)
+
+
+@pytest.mark.parametrize("t,r,lo,hi,seed", [
+    (1, 64, 0, 8, 0), (4, 32, -16, 16, 1), (3, 48, -100, 5, 2),
+    (8, 16, 0, 2, 3)])
+def test_join_mask_matches_jax(t, r, lo, hi, seed):
+    import jax.numpy as jnp
+    from repro.kernels import dedup as JD
+    keys = np.random.default_rng(seed).integers(lo, hi, (t, r)).astype(
+        np.int32)
+    # unique negative sentinels, as the accounting mirror writes them
+    keys[:, ::5] = -1000 - np.arange(t * len(range(0, r, 5))).reshape(t, -1)
+    want = np.asarray(JD.join_mask(jnp.asarray(keys)))
+    got = TD.join_mask(torch.as_tensor(keys)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _store(seed, rho=24, eps=4, d=16, lam=5):
+    rng = np.random.default_rng(seed)
+    vecs = rng.standard_normal((rho, eps, d)).astype(np.float32)
+    vid = rng.permutation(rho * eps).reshape(rho, eps).astype(np.int32)
+    nbrs = rng.integers(-1, rho * eps, (rho, eps, lam)).astype(np.int32)
+    return vecs, vid, nbrs
+
+
+@pytest.mark.parametrize("qn,f,seed", [(16, 3, 7), (8, 1, 8), (37, 2, 9)])
+def test_gather_union_and_unique_match_jax(qn, f, seed):
+    import jax.numpy as jnp
+    from repro.kernels.tier0_fetch import gather_union, gather_unique
+    vecs, vid, nbrs = _store(seed)
+    b = np.random.default_rng(seed).integers(0, vecs.shape[0], (qn, f)
+                                             ).astype(np.int32)
+    jstore = [jnp.asarray(a) for a in (vecs, vid, nbrs)]
+    tstore = [torch.as_tensor(a) for a in (vecs, vid, nbrs)]
+    want = gather_union(jnp.asarray(b), *jstore)
+    got = TT.gather_union(torch.as_tensor(b), *tstore)
+    for name, g, w in zip(("uniq", "rank2d", "tiles", "vid", "nbrs"),
+                          got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=name)
+    r = qn * f
+    want_u = gather_unique(want[0], *jstore, rb=r)
+    got_u = TT.gather_unique(got[0], *tstore)
+    for name, g, w in zip(("tiles", "vid", "nbrs"), got_u, want_u):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=name)
+
+
+def _round_case(q, rho, eps, d, f, hot_n, lam=5, seed=0, idle_rows=0):
+    """The JAX package's ``_fused_round_case`` inputs, as numpy."""
+    rng = np.random.default_rng(seed)
+    n = rho * eps
+    qs = rng.standard_normal((q, d)).astype(np.float32)
+    cold = rng.standard_normal((rho, eps, d)).astype(np.float32)
+    vid = rng.permutation(n).reshape(rho, eps).astype(np.int32)
+    nbrs = rng.integers(-1, n, (rho, eps, lam)).astype(np.int32)
+    block_of = np.zeros(n, np.int32)
+    block_of[vid.reshape(-1)] = np.repeat(np.arange(rho, dtype=np.int32),
+                                          eps)
+    slot_of = np.full(rho, -1, np.int32)
+    if hot_n > 0:
+        hot_ids = rng.permutation(rho)[:hot_n]
+        slot_of[hot_ids] = np.arange(hot_n, dtype=np.int32)
+        hot = (cold[hot_ids], vid[hot_ids], nbrs[hot_ids])
+    else:
+        hot = (np.zeros((1, eps, d), np.float32),
+               np.full((1, eps), -1, np.int32),
+               np.full((1, eps, lam), -1, np.int32))
+    u = rng.integers(0, n, (q, f)).astype(np.int32)
+    u[rng.random((q, f)) < 0.2] = -1
+    if idle_rows:
+        u[-idle_rows:] = -1
+    return (qs, u, block_of, slot_of, *hot, cold, vid, nbrs)
+
+
+ROUND_CASES = {
+    # name: (q, rho, eps, d, f, hot_n, bq, idle_rows)
+    "one_tile": (16, 32, 4, 16, 1, 8, None, 0),
+    "ragged_no_hot": (37, 64, 8, 32, 2, 0, None, 0),
+    "wide_fetch": (8, 16, 6, 24, 3, 16, None, 0),
+    "idle_tile": (16, 32, 4, 16, 2, 8, 8, 8),
+    "part_idle_tile": (24, 32, 4, 16, 2, 8, 8, 5),
+}
+
+
+def _selection_key(dd, vid, u):
+    eps = vid.shape[1] // u.shape[1]
+    valid = (vid >= 0) & np.repeat(u >= 0, eps, axis=1)
+    is_t = (vid[:, :, None] == u[:, None, :]).any(-1) & (vid >= 0)
+    return np.where(is_t, -np.inf, np.where(valid, dd, np.inf))
+
+
+def _assert_no_near_ties(sel):
+    for row in sel:
+        fin = np.sort(row[np.isfinite(row)])
+        gaps = np.diff(fin)
+        assert not ((gaps > 0) & (gaps < 1e-4)).any(), \
+            "data has a near-tie: the order comparison would be flaky"
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("case", sorted(ROUND_CASES))
+def test_fused_round_matches_jax(case, metric):
+    import jax.numpy as jnp
+    from repro import kernels as JK
+    q, rho, eps, d, f, hot_n, bq, idle = ROUND_CASES[case]
+    args = _round_case(q, rho, eps, d, f, hot_n, seed=q * rho,
+                       idle_rows=idle)
+    n_expand = f * 2
+    want = [np.asarray(a) for a in JK.fused_round(
+        *[jnp.asarray(a) for a in args], n_expand, metric=metric, bq=bq,
+        fuse_union=True)]
+    for fuse in (True, False):
+        got = [a.numpy() for a in TO.fused_round(
+            *[torch.as_tensor(a) for a in args], n_expand, metric=metric,
+            bq=bq, fuse_union=fuse)]
+        for name, i in (("vid", 1), ("nbrs", 2), ("hit", 3)):
+            np.testing.assert_array_equal(got[i], want[i], err_msg=name)
+        np.testing.assert_allclose(got[0], want[0], atol=ATOL, rtol=RTOL)
+        _assert_no_near_ties(_selection_key(want[0], want[1], args[1]))
+        np.testing.assert_array_equal(got[4], want[4], err_msg="order")
+    if idle:
+        tile = bq or q
+        idle_tiles = [t for t in range(0, q, tile)
+                      if (args[1][t:t + tile] < 0).all()]
+        for t in idle_tiles:
+            assert (got[1][t:t + tile] == -1).all()
+            assert (got[0][t:t + tile] == 0).all()
+            assert (got[4][t:t + tile] == 0).all()
+        assert bool(idle_tiles) == (idle >= tile)
+
+
+def test_fused_round_ref_matches_jax_ref():
+    import jax.numpy as jnp
+    from repro.kernels import ref as JR
+    args = _round_case(37, 64, 8, 32, 2, 12, seed=5)
+    want = [np.asarray(a) for a in JR.fused_round_ref(
+        *[jnp.asarray(a) for a in args], 4)]
+    got = [a.numpy() for a in TR.fused_round_ref(
+        *[torch.as_tensor(a) for a in args], 4)]
+    for i in (1, 2, 3, 4):
+        np.testing.assert_array_equal(got[i], want[i])
+    np.testing.assert_allclose(got[0], want[0], atol=ATOL, rtol=RTOL)
+
+
+def test_cpu_wrappers_launch_nothing():
+    TT.reset_launches()
+    args = _round_case(16, 32, 4, 16, 2, 8)
+    TO.fused_round(*[torch.as_tensor(a) for a in args], 4)
+    assert all(v == 0 for v in TT.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------- on the card
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _on(dev, arrays):
+    return [torch.as_tensor(a, device=dev) for a in arrays]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qn,f", [(1024, 2), (37, 3), (8, 1)])
+def test_cuda_gather_kernels_match_plain(cuda, qn, f):
+    vecs, vid, nbrs = _on(cuda, _store(qn, rho=5000, eps=6, d=128, lam=24))
+    b = torch.as_tensor(np.random.default_rng(qn).integers(
+        0, 5000, (qn, f)).astype(np.int32), device=cuda)
+    TT.reset_launches()
+    got = TT.gather_union(b, vecs, vid, nbrs)
+    torch.cuda.synchronize()
+    want = TR.gather_union_ref(b, vecs, vid, nbrs)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    got_u = TT.gather_unique(want[0], vecs, vid, nbrs)
+    for g, w in zip(got_u, want[2:]):
+        assert torch.equal(g, w)
+    assert TT.LAUNCHES["gather_union"] == 1
+    assert TT.LAUNCHES["gather_unique"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("case", sorted(ROUND_CASES))
+def test_cuda_fused_round_matches_plain(cuda, case, metric):
+    q, rho, eps, d, f, hot_n, bq, idle = ROUND_CASES[case]
+    args = _round_case(q, rho, eps, d, f, hot_n, seed=q * rho,
+                       idle_rows=idle)
+    TT.reset_launches()
+    got = TO.fused_round(*_on(cuda, args), f * 2, metric=metric, bq=bq)
+    torch.cuda.synchronize()
+    want = TO.fused_round(*[torch.as_tensor(a) for a in args], f * 2,
+                          metric=metric, bq=bq)
+    assert TT.LAUNCHES["fused_round_rank"] == 1
+    for i in (1, 2, 3):
+        np.testing.assert_array_equal(got[i].cpu().numpy(),
+                                      want[i].numpy())
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                               atol=1e-4, rtol=1e-5)
+    u = args[1]
+    if bq is None:
+        bq = TO.round_tile(q)
+    pad = (-q) % bq
+    live = np.repeat(np.pad(u, ((0, pad), (0, 0)), constant_values=-1)
+                     .reshape(-1, bq * f).max(1) >= 0, bq)[:q]
+    _, own = TR.selection_order(got[0].cpu(), got[1].cpu(),
+                                torch.as_tensor(u), f * 2)
+    own = np.where(live[:, None], own.numpy(), 0)
+    np.testing.assert_array_equal(got[4].cpu().numpy(), own)
