@@ -3,36 +3,54 @@
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero without
 
-It drives the port's main path — the batched device search as
-``SegmentServer.search`` serves it — on a synthetic 1,000,000 x 128
-segment made from a seed (``data.synthetic.synthetic_segment``), and
-checks it:
+It drives the port's two paths — the segment build
+(``core.segment.build_segment``) and the batched device search as
+``SegmentServer.search`` serves it — on a 1,000,000 x 128 segment built
+from seeded clustered vectors, and checks them:
 
   1. card: name and power limit (``nvidia-smi``);
-  2. build: compiles the round kernels from ``kernels/csrc``;
-  3. segment: builds the segment on the card, with the 10% tier-0 pack;
-  4. kernels: each CUDA kernel against its plain PyTorch version on the
-     inputs of a real first round of a 1,024-query batch (integer
-     outputs equal, distances within atol 1e-4 / rtol 1e-5, the order
-     equal to a stable argsort of the kernel's own selection key), and
-     each timed with CUDA events next to its plain version;
-  5. serve: one warm-up batch, then 8 batches of 1,024 queries, k=10,
-     with recall@10 against a brute-force oracle and the launch counts
-     (which must follow the rounds); then one batch on the two-pass
-     union path (``fuse_union=False``, which runs ``gather_unique``);
-  6. kernel path against plain path: one batch with ``fetch_impl="ref"``
+  2. build kernels: compiles every source of ``kernels/csrc`` (one
+     ``nvcc`` each, all started together);
+  3. segment: ``build_segment`` with the bench segment's knobs (Λ=24,
+     BNF β=8 τ=0.001, PQ M=8, NSG navigation graph on a 10% sample, 10%
+     tier-0 pack) and an NSG disk graph — the one reduction: Vamana's
+     sequential insertion does not fit the run at 1M. Prints the stage
+     times, the kNN's share, the connectivity fix's attachments, OR(G)
+     after BNP and each BNF round, and Eq. 10's memory and disk bytes
+     against the 2 GB / 10 GB budget; checks the layout, reachability,
+     degrees and self-loops; the build must launch ``l2_tile``;
+  4. vamana: ``build_vamana`` at 100,000 x 128 with the same knobs: time,
+     average degree, OR(G) after BNF, reachability;
+  5. kernels: each CUDA kernel against its plain PyTorch version — the
+     round kernels on the inputs of a real first round of a 1,024-query
+     batch (integer outputs equal, distances within atol 1e-4 / rtol
+     1e-5, the order equal to a stable argsort of the kernel's own
+     selection key); ``l2_tile`` on the build's kNN chunk, 2,048 of the
+     vectors x all 1M (atol 1e-2 / rtol 1e-5), and the kNN ids of 4,096
+     sampled vertices in such chunks; ``pq_adc`` on the segment's codes x
+     a 1,024-query batch's LUTs (rtol 1e-5) — each timed with CUDA events
+     next to its plain version and one library call (``torch.cdist``,
+     ``embedding_bag``);
+  6. serve: one warm-up batch, then 8 batches of 1,024 queries, k=10,
+     with recall@10 against the brute-force oracle (``distances.
+     brute_force_knn``, through ``l2_tile``; its ids equal the plain
+     oracle's on the check batch) and the launch counts (which must
+     follow the rounds); then one batch on the two-pass union path
+     (``fuse_union=False``, which runs ``gather_unique``);
+  7. kernel path against plain path: one batch with ``fetch_impl="ref"``
      (recall within ±0.01 of the kernel path);
-  7. profile: one batch under ``torch.profiler`` — device busy time, the
+  8. profile: one batch under ``torch.profiler`` — device busy time, the
      idle share of the batch, the ops that take the device time;
-  8. summary: one JSON line of the kernels, the card line, and last
+  9. summary: one JSON line of the kernels, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 Every served batch is checked: 10 distinct ids per query with ascending
 distances, each the exact distance of its id. recall@10 is printed, not
-bounded: the synthetic graph is a stand-in, not a built index.
+bounded.
 
 Any failed check exits non-zero. ``--device cpu --n 20000`` rehearses the
-whole script on the CPU with the plain versions (for rehearsal only).
+whole script on the CPU with the plain versions (for rehearsal only; its
+Vamana phase then builds n/4 vectors).
 """
 from __future__ import annotations
 
@@ -51,11 +69,22 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 DIM, BATCH, BATCHES = 128, 1024, 8   # SIFT1M width; 8 batches of 1,024
+VAMANA_N = 100_000                   # the Vamana phase's size on the card
+KNN_ROWS = 4096                      # sampled vertices of the kNN check
+KNN_CHUNK = 2048                     # distances.knn_graph's row chunk
+L2_ATOL, L2_RTOL = 1e-2, 1e-5        # f32 order, squared norms ~1e4
 ITERS = 50                           # launches per kernel timing
-SRC = "src/repro_torch/kernels/csrc/tier0_fetch.cu"
-REPLACES = {"gather_union": "src/repro/kernels/tier0_fetch.py:257",
-            "fused_round_rank": "src/repro/kernels/tier0_fetch.py:401",
-            "gather_unique": "src/repro/kernels/tier0_fetch.py:167"}
+CSRC = "src/repro_torch/kernels/csrc/"
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "gather_union": ("tier0_fetch.cu",
+                     "src/repro/kernels/tier0_fetch.py:257"),
+    "fused_round_rank": ("tier0_fetch.cu",
+                         "src/repro/kernels/tier0_fetch.py:401"),
+    "gather_unique": ("tier0_fetch.cu",
+                      "src/repro/kernels/tier0_fetch.py:167"),
+    "l2_tile": ("l2_tile.cu", "src/repro/kernels/l2_tile.py:43"),
+    "pq_adc": ("pq_adc.cu", "src/repro/kernels/pq_adc.py:48"),
+}
 
 
 class SmokeFailure(Exception):
@@ -120,6 +149,37 @@ def recall(pred: np.ndarray, truth: np.ndarray) -> float:
     return hits / truth.size
 
 
+def reachable(adj: np.ndarray, deg: np.ndarray, entry: int) -> np.ndarray:
+    """Vertices reachable from ``entry``: scipy's breadth-first order on
+    the sparse adjacency, a check independent of the build's own."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import breadth_first_order
+    n = adj.shape[0]
+    live = np.arange(adj.shape[1])[None, :] < deg[:, None]
+    rows = np.repeat(np.arange(n), live.sum(1))
+    a = csr_matrix((np.ones(rows.size, np.int8), (rows, adj[live])),
+                   shape=(n, n))
+    seen = np.zeros(n, bool)
+    seen[breadth_first_order(a, entry, directed=True,
+                             return_predecessors=False)] = True
+    return seen
+
+
+def check_graph(g, what: str) -> None:
+    """Degrees within Λ, ids in range, no self-loops, every vertex
+    reachable from the entry."""
+    n, lam = g.adj.shape
+    live = np.arange(lam)[None, :] < g.deg[:, None]
+    check(bool((g.deg >= 0).all() and (g.deg <= lam).all()),
+          f"{what}: a degree exceeds Λ={lam}")
+    check(bool(((g.adj >= 0) & (g.adj < n))[live].all()),
+          f"{what}: an edge leaves the id range")
+    check(not bool((g.adj == np.arange(n)[:, None])[live].any()),
+          f"{what}: a self-loop")
+    check(bool(reachable(g.adj, g.deg, g.entry).all()),
+          f"{what}: a vertex is unreachable from the entry")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
@@ -134,20 +194,27 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "src"))
+    from repro_torch import kernels as K
     from repro_torch.core import device_search as DS
+    from repro_torch.core import distances as D
+    from repro_torch.core import graph as G
+    from repro_torch.core import layout as L
     from repro_torch.core.params import (SEGMENT_BENCH_DEVICE,
                                          SERVE_DEVICE_SEARCH)
-    from repro_torch.core.segment import segment_from_arrays
-    from repro_torch.data.synthetic import synthetic_segment
-    from repro_torch.data.vectors import query_set
+    from repro_torch.core.segment import build_segment
+    from repro_torch.data.vectors import clustered_vectors, query_set
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import l2_tile as L2
+    from repro_torch.kernels import pq_adc as PQK
     from repro_torch.kernels import tier0_fetch as T0
+    from repro_torch.pq.pq import PQCodebook, adc_lut_batch
     from repro_torch.serving.coordinator import SegmentServer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(args.device)
     on_card = device.type == "cuda"
+    launches = {}
 
     with phase("1 card"):
         card = card_line() if on_card else "cpu rehearsal"
@@ -160,19 +227,56 @@ def main() -> int:
         if on_card:
             t0 = time.perf_counter()
             libs = _build.build()
-            _build.load("tier0_fetch")
+            for name in libs:
+                _build.load(name)
             print(f"built {sorted(libs)} in "
                   f"{time.perf_counter() - t0:.3f} s")
         else:
             print("skipped: the CPU rehearsal runs the plain versions")
 
     with phase("3 segment"):
-        times = {}
-        arrays = synthetic_segment(args.n, DIM, args.seed, device,
-                                   times=times)
-        for k, v in times.items():
+        params = dataclasses.replace(
+            SEGMENT_BENCH_DEVICE, graph=dataclasses.replace(
+                SEGMENT_BENCH_DEVICE.graph, algo="nsg"))
+        print("  reduction: disk graph NSG instead of Vamana (Vamana's "
+              "sequential batched insertion does not fit this run at "
+              f"n={args.n}; it is built at {VAMANA_N} in phase 4)")
+        t0 = time.perf_counter()
+        x = clustered_vectors(args.n, DIM, seed=args.seed)
+        print(f"  vectors_s: {time.perf_counter() - t0:.3f}")
+        K.reset_all_launches()
+        seg = build_segment(x, params, device=device)
+        built = K.launch_counts()
+        launches["l2_tile"] = built["l2_tile"]
+        launches["pq_adc"] = built["pq_adc"]
+        bt, info = seg.build_times, seg.build_info
+        for k, v in bt.items():
             print(f"  {k}: {v:.3f}")
-        seg = segment_from_arrays(arrays, SEGMENT_BENCH_DEVICE)
+        print(f"  build total: {sum(bt.values()):.3f} s; kNN "
+              f"{info['knn_s']:.3f} s = "
+              f"{info['knn_s'] / bt['disk_graph_s']:.4f} of disk_graph_s;"
+              f" prune {info['prune_s']:.3f} s; connectivity fix attached "
+              f"{info['attached']} vertices")
+        hist = info["or_history"]
+        served_layout = ("BNF" if seg.overlap_ratio > hist[0]
+                         else "BNP (BNF rounds rejected)")
+        print(f"  OR(G): BNP {hist[0]:.4f}; after each BNF round "
+              f"{[round(h, 4) for h in hist[1:]]}; kept "
+              f"{seg.overlap_ratio:.4f}: the served layout is "
+              f"{served_layout}")
+        mem, disk = seg.memory_bytes(), seg.disk_bytes()
+        print(f"  memory_bytes {mem} of {params.budget.memory_bytes} "
+              f"(Eq. 10); disk_bytes {disk} of {params.budget.disk_bytes}; "
+              f"check_budget {seg.check_budget()}")
+        print(f"  l2_tile launches in the build: {launches['l2_tile']}")
+        seg.layout.validate()
+        check_graph(seg.graph, "disk graph")
+        check(mem <= params.budget.memory_bytes
+              and disk <= params.budget.disk_bytes, "over the space budget")
+        if on_card:
+            check(launches["l2_tile"] > 0, "the build launched no l2_tile")
+        print(f"  graph: avg degree {seg.graph.avg_degree():.3f}, entry "
+              f"{seg.entry}; nav graph {seg.nav_ids.shape[0]} vertices")
         t0 = time.perf_counter()
         ds = DS.from_segment(seg, device=device)
         sync(device)
@@ -183,11 +287,27 @@ def main() -> int:
         print(f"  device total: {sum(nb.values())} B; n={args.n} "
               f"rho={seg.num_blocks} eps={seg.vid.shape[1]} "
               f"hot={len(DS.hot_pack_blocks(ds))}")
-        # the vectors in id order, for the queries and the oracle
-        valid = seg.vid >= 0
-        x = np.empty((seg.num_vectors, DIM), np.float32)
-        x[seg.vid[valid]] = seg.vecs[valid]
-        del arrays
+
+    with phase("4 vamana"):
+        nv = VAMANA_N if on_card else min(VAMANA_N, args.n // 4)
+        xv = clustered_vectors(nv, DIM, seed=args.seed + 1)
+        vstats = {}
+        t0 = time.perf_counter()
+        gv = G.build_vamana(xv, SEGMENT_BENCH_DEVICE.graph, device=device,
+                            stats=vstats)
+        tv = time.perf_counter() - t0
+        eps_v = params.layout.verts_per_block(DIM, gv.max_degree)
+        hv = []
+        t0 = time.perf_counter()
+        L.make_layout(gv, eps_v, "bnf", bnf_iters=params.layout.bnf_iters,
+                      tau=params.layout.gain_tau, history=hv)
+        print(f"  build_vamana n={nv}: {tv:.3f} s (beam search "
+              f"{vstats['search_s']:.3f} s), avg degree "
+              f"{gv.avg_degree():.3f}, connectivity fix attached "
+              f"{vstats['attached']}; BNF {time.perf_counter() - t0:.3f} s, "
+              f"OR(G) BNP {hv[0]:.4f} -> BNF {[round(h, 4) for h in hv[1:]]}")
+        check_graph(gv, "vamana graph")
+        del xv, gv
 
     p = SERVE_DEVICE_SEARCH
     nq = BATCH
@@ -196,7 +316,7 @@ def main() -> int:
                for i in range(BATCHES + 3)]
     kern = {}
 
-    with phase("4 kernels against plain versions"):
+    with phase("5 kernels against plain versions"):
         q0 = torch.as_tensor(batches[0], device=device)
         q0, _, st = DS.initial_state(ds, q0, p)
         fw = p.fetch_width
@@ -282,6 +402,93 @@ def main() -> int:
             "plain_ms": time_ms(lambda: ref.fused_round_rank_ref(
                 *rargs, bq=bq), device, ITERS, flush),
             "library_ms": None}
+
+        # l2_tile at the shape the build gives it: a kNN chunk of the
+        # segment's own vectors against all of them
+        xt = torch.as_tensor(x, device=device)
+        chunk = D._row_chunk(args.n, device, KNN_CHUNK)
+        rows = torch.as_tensor(np.sort(np.random.default_rng(
+            args.seed).choice(args.n, min(KNN_ROWS, args.n), replace=False)),
+            device=device)
+        xc = xt[rows[:chunk]]
+        got = L2.l2_tile(xc, xt)
+        want = ref.pairwise_l2_ref(xc, xt)
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, atol=L2_ATOL, rtol=L2_RTOL),
+              f"l2_tile outside atol {L2_ATOL} / rtol {L2_RTOL}")
+        del got, want
+        # the kNN of sampled vertices, kernel path against plain path,
+        # in the build's chunks
+        kk = min(max(2 * params.graph.max_degree, params.graph.build_beam),
+                 args.n - 1)
+        clear = same_set = same_order = 0
+        for s in range(0, rows.numel(), chunk):
+            xr = xt[rows[s:s + chunk]]
+            ik = D.topk_smallest(L2.l2_tile(xr, xt), kk + 1)
+            dp = ref.pairwise_l2_ref(xr, xt)
+            ip = D.topk_smallest(dp, kk + 1)
+            vp = torch.gather(dp, 1, ip)
+            del dp
+            ok = (vp[:, kk] - vp[:, kk - 1]) > L2_ATOL
+            eq = (torch.sort(ik[:, :kk], 1).values
+                  == torch.sort(ip[:, :kk], 1).values).all(1)
+            check(bool(eq[ok].all()), "l2_tile kNN ids differ from the "
+                  "plain path's where the k-th gap exceeds the tolerance")
+            clear += int(ok.sum())
+            same_set += int(eq.sum())
+            same_order += int((ik[:, :kk] == ip[:, :kk]).all(1).sum())
+        print(f"  l2_tile kNN (k={kk}) on {rows.numel()} vertices: same id "
+              f"set {same_set}, same order {same_order}; "
+              f"{clear} rows with a k-th gap > {L2_ATOL} (all equal)")
+        big_iters = 10
+        mc = xc.shape[0]
+        kern["l2_tile"] = {
+            "max_abs_err": err,
+            "bytes": (mc + args.n) * DIM * 4 + mc * args.n * 4,
+            "ops": 2 * mc * args.n * DIM,
+            "ms": time_ms(lambda: L2.l2_tile(xc, xt), device, big_iters,
+                          flush),
+            "plain_ms": time_ms(lambda: ref.pairwise_l2_ref(xc, xt), device,
+                                big_iters, flush),
+            # torch.cdist: the same matrix, plus a square root
+            "library_ms": time_ms(lambda: torch.cdist(
+                xc, xt, compute_mode="use_mm_for_euclid_dist"), device,
+                big_iters, flush)}
+        print(f"  l2_tile held and timed at [{mc} x {args.n} x {DIM}] (the "
+              f"build's kNN chunk)")
+
+        # pq_adc: the segment's codes against a 1,024-query batch's LUTs
+        ql = torch.as_tensor(batches[0], device=device)
+        luts = adc_lut_batch(ql, PQCodebook(seg.pq_cent, DIM, seg.metric),
+                             device=device)
+        codes = ds.pq_codes
+        got = PQK.pq_adc(codes, luts)
+        want = ref.pq_adc_ref(luts, codes)
+        check(torch.allclose(got, want, rtol=1e-5, atol=0.0),
+              "pq_adc outside rtol 1e-5")
+        m_sub, k_cent = luts.shape[1], luts.shape[2]
+        # the library call: one embedding_bag, the LUTs as a [M*K, B]
+        # table, each code row a bag of M offsets (out [N, B], the TPU
+        # kernel's own layout); index and table made outside the timing
+        bag_idx = codes.long() + torch.arange(
+            m_sub, device=device) * k_cent
+        bag_w = luts.permute(1, 2, 0).reshape(m_sub * k_cent, nq).contiguous()
+        lib = torch.nn.functional.embedding_bag(bag_idx, bag_w, mode="sum")
+        check(torch.allclose(lib.T, want, rtol=1e-4, atol=1e-3),
+              "embedding_bag does not compute the pq_adc function")
+        del lib
+        kern["pq_adc"] = {
+            "max_abs_err": float((got - want).abs().max()),
+            "bytes": (args.n * m_sub + nq * m_sub * k_cent * 4
+                      + nq * args.n * 4),
+            "ops": nq * args.n * m_sub,
+            "ms": time_ms(lambda: PQK.pq_adc(codes, luts), device, big_iters,
+                          flush),
+            "plain_ms": time_ms(lambda: ref.pq_adc_ref(luts, codes), device,
+                                big_iters, flush),
+            "library_ms": time_ms(lambda: torch.nn.functional.embedding_bag(
+                bag_idx, bag_w, mode="sum"), device, big_iters, flush)}
+        del got, want, bag_idx, bag_w
         for name, k in kern.items():
             k["bound_ms"] = max(k["bytes"] / HBM_BYTES_PER_S,
                                 k["ops"] / F32_OPS_PER_S) * 1e3
@@ -290,18 +497,18 @@ def main() -> int:
             print(f"  {name}: ms={k['ms']:.6f} plain_ms={k['plain_ms']:.6f}"
                   f" bound_ms={k['bound_ms']:.6f} library_ms="
                   f"{k['library_ms']} max_abs_err={k['max_abs_err']:.3e} "
-                  f"(R={r}, distinct={ndist})")
+                  f"bound_by={k['bound_by']}")
+        print(f"  round inputs: R={r}, distinct={ndist}")
         del flush
 
-    with phase("5 serve"):
+    with phase("6 serve"):
         srv = SegmentServer(segment=ds, offset=0,
                             num_vectors=seg.num_vectors, params=p,
                             device=args.device)
+
         def oracle(qb):
-            qt = torch.as_tensor(qb, device=device)
-            d = xx[None, :] - 2.0 * (qt @ xt.T)
-            return torch.topk(d, 10, dim=1, largest=False).indices.cpu(
-                ).numpy()
+            """Exact top-10 through the l2_tile kernel."""
+            return D.brute_force_knn(xt, qb, 10, device=device)
 
         def serve(qb, server):
             sync(device)
@@ -332,11 +539,12 @@ def main() -> int:
         serve(batches[0], srv)                       # warm-up
         if on_card:
             torch.cuda.reset_peak_memory_stats(device)
-        T0.reset_launches()
-        rounds, served, lat = [], [], []
+        K.reset_all_launches()
+        rounds, served, lat, batch_st = [], [], [], []
         for i in range(1, BATCHES + 1):
             ids, dists, ms = serve(batches[i], srv)
             st = srv.batch_stats()
+            batch_st.append(st)
             rounds.append(st["rounds"])
             served.append((ids, dists))
             lat.append(ms)
@@ -344,7 +552,10 @@ def main() -> int:
                   f"rounds {st['rounds']}, io {st['io'].mean():.3f}, "
                   f"tier0_hits {st['tier0_hits'].mean():.3f}, "
                   f"dedup_saved {st['dedup_saved'].mean():.3f} per query")
-        launches = dict(T0.LAUNCHES)
+        served_launches = K.launch_counts()
+        for name in ("gather_union", "fused_round_rank"):
+            launches[name] = served_launches[name]
+        launches["pq_adc"] += served_launches["pq_adc"]
         print(f"  batch ms median {np.median(lat):.3f} max {max(lat):.3f}"
               f" ({BATCHES} batches); QPS at the median "
               f"{nq / np.median(lat) * 1e3:.1f}; ms per round "
@@ -352,41 +563,48 @@ def main() -> int:
         if on_card:
             print(f"  max_memory_allocated "
                   f"{torch.cuda.max_memory_allocated(device)} B")
-        xt = torch.as_tensor(x, device=device)
-        xx = torch.sum(xt * xt, dim=1)
         truth = []
         for i, (ids, dists) in enumerate(served, start=1):
             check_results(batches[i], ids, dists)
             truth.append(oracle(batches[i]))
         rec = recall(np.concatenate([s[0] for s in served]),
                      np.concatenate(truth))
-        print(f"  recall@10 {rec:.4f} over {nq * BATCHES} queries "
-              f"(synthetic stand-in graph)")
-        print(f"  launches {launches}, rounds {sum(rounds)}")
+        io = np.mean([s["io"].mean() for s in batch_st])
+        print(f"  recall@10 {rec:.4f} over {nq * BATCHES} queries (built "
+              f"segment: NSG, {served_layout}); per query io {io:.3f}, "
+              f"tier0_hits "
+              f"{np.mean([s['tier0_hits'].mean() for s in batch_st]):.3f}, "
+              f"dedup_saved "
+              f"{np.mean([s['dedup_saved'].mean() for s in batch_st]):.3f}")
+        print(f"  launches {served_launches}, rounds {sum(rounds)}")
         if on_card:
-            check(launches["gather_union"] == sum(rounds) > 0
-                  and launches["fused_round_rank"] == sum(rounds),
+            check(served_launches["gather_union"] == sum(rounds) > 0
+                  and served_launches["fused_round_rank"] == sum(rounds),
                   "main-path launches do not follow the rounds")
 
         # the two-pass union path on the next batch
         srv2 = dataclasses.replace(
             srv, params=dataclasses.replace(p, fuse_union=False))
         ids_f, _, _ = serve(batches[BATCHES + 1], srv)
-        T0.reset_launches()
+        K.reset_all_launches()
         ids_2, _, ms = serve(batches[BATCHES + 1], srv2)
         r2 = srv2.batch_stats()["rounds"]
-        for name, v in T0.LAUNCHES.items():
-            launches[name] = launches[name] or v
+        two_pass = K.launch_counts()
+        launches["gather_unique"] = two_pass["gather_unique"]
+        launches["pq_adc"] += two_pass["pq_adc"]
         print(f"  two-pass union batch: {ms:.3f} ms, rounds {r2}, "
-              f"launches {dict(T0.LAUNCHES)}")
+              f"launches {two_pass}")
         check(np.array_equal(ids_f, ids_2),
               "fuse_union=False changed the ids")
         if on_card:
-            check(T0.LAUNCHES["gather_unique"] == r2 > 0
-                  and T0.LAUNCHES["gather_union"] == 0,
+            check(two_pass["gather_unique"] == r2 > 0
+                  and two_pass["gather_union"] == 0,
                   "two-pass launches do not follow the rounds")
+        # pq_adc is the kernel API's entry (ops.pq_adc_batch): the count
+        # read over the build and the served batches says whether either
+        # path called it
 
-    with phase("6 kernel path against plain path"):
+    with phase("7 kernel path against plain path"):
         qb = batches[BATCHES + 2]
         srv_ref = dataclasses.replace(
             srv, params=dataclasses.replace(p, fetch_impl="ref"))
@@ -395,6 +613,20 @@ def main() -> int:
         check_results(qb, ids_k, d_k)
         check_results(qb, ids_r, d_r)
         t = oracle(qb)
+        # the oracle's ids against the plain oracle's (pairwise_l2_ref):
+        # equal sets wherever the 10th/11th gap exceeds the tolerance
+        qbt = torch.as_tensor(qb, device=device)
+        dp = ref.pairwise_l2_ref(qbt, xt)
+        ip = D.topk_smallest(dp, 11)
+        vp = torch.gather(dp, 1, ip).cpu().numpy()
+        del dp
+        same = (np.sort(t, 1) == np.sort(ip[:, :10].cpu().numpy(), 1)).all(1)
+        clear = (vp[:, 10] - vp[:, 9]) > L2_ATOL
+        check(bool(same[clear].all()), "the oracle's ids differ from the "
+              "plain oracle's")
+        print(f"  oracle: ids equal to the plain oracle's on "
+              f"{int(same.sum())} of {nq} queries ({int(clear.sum())} with "
+              f"a 10th/11th gap > {L2_ATOL}, all equal)")
         rk, rr = recall(ids_k, t), recall(ids_r, t)
         agree = float((ids_k == ids_r).all(1).mean())
         print(f"  kernel path {ms_k:.3f} ms recall {rk:.4f}; plain path "
@@ -403,7 +635,7 @@ def main() -> int:
         check(abs(rk - rr) <= 0.01, "kernel and plain recall differ "
               "by more than 0.01")
 
-    with phase("7 profile one batch"):
+    with phase("8 profile one batch"):
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU]
         if on_card:
@@ -426,10 +658,10 @@ def main() -> int:
                       f" ms host {e.self_cpu_time_total / 1e3:9.3f} ms")
 
     out = []
-    for name in ("gather_union", "fused_round_rank", "gather_unique"):
+    for name, (src, replaces) in KERNELS.items():
         k = kern[name]
-        out.append({"name": name, "route": "cuda", "source": SRC,
-                    "replaces": REPLACES[name],
+        out.append({"name": name, "route": "cuda", "source": CSRC + src,
+                    "replaces": replaces,
                     "launches": launches[name],
                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -33,6 +33,7 @@ from repro_torch.core.params import DeviceSearchParams
 from repro_torch.io import hotset
 from repro_torch import kernels as K
 from repro_torch.kernels import dedup, ref
+from repro_torch.pq.pq import lut_batch
 
 # per-round trace columns, equal to repro.core.device_search._ROUND_LOG_COLS
 _ROUND_LOG_COLS = ("live", "cold", "tier0", "joins", "joins_x",
@@ -181,14 +182,7 @@ def _dists(q: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tensor:
     return ref.sq_dists(q, x, metric)
 
 
-def _adc_lut(q: torch.Tensor, cent: torch.Tensor,
-             metric: str) -> torch.Tensor:
-    """q [Q, D], cent [M, K, dsub] -> [Q, M, K]."""
-    m, _, dsub = cent.shape
-    qs = q.reshape(q.shape[0], m, 1, dsub).to(torch.float32)
-    if metric == "ip":
-        return -torch.sum(cent[None] * qs, dim=-1)
-    return torch.sum(torch.square(cent[None] - qs), dim=-1)
+_adc_lut = lut_batch          # q [Q, D], cent [M, K, dsub] -> [Q, M, K]
 
 
 def _adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,58 @@
+"""In-memory navigation graph, §4.2 (port of ``repro.core.navgraph``).
+
+Sample μ·N vertices, build a graph index over the sample, and answer
+"give me entry points near q" without any disk I/O. Returned ids are in
+the full dataset's id space. ``subset_navgraph`` (the hot tier's) and
+``from_hnsw_layers`` are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import distances as D
+from repro_torch.core import graph as G
+from repro_torch.core.params import GraphParams, NavGraphParams
+
+
+@dataclasses.dataclass
+class NavGraph:
+    graph: G.Graph
+    sample_ids: np.ndarray      # [n'] global ids of sampled vertices
+    vectors: np.ndarray         # [n', D] resident copies (the memory charge)
+
+    def memory_bytes(self) -> int:
+        """C_graph of Eq. 10: resident vectors + adjacency + degree."""
+        return (self.vectors.nbytes + self.graph.adj.nbytes
+                + self.graph.deg.nbytes + self.sample_ids.nbytes)
+
+    def entry_points(self, queries, beam: int, num: int,
+                     device="cuda") -> np.ndarray:
+        """[Q, num] global entry-point ids (query-aware, no disk I/O):
+        the first ``num`` of a beam search on the sample's graph."""
+        dev = torch.device(device)
+        ids, _, _ = G.greedy_search_batch(
+            D.as_tensor(self.vectors, dev),
+            torch.as_tensor(self.graph.adj, device=dev), self.graph.deg,
+            self.graph.entry, D.as_tensor(queries, dev),
+            beam=max(beam, num), metric=self.graph.metric)
+        picked = ids[:, :num].clamp_min(0).cpu().numpy()
+        return self.sample_ids[picked]
+
+
+def build_navgraph(x: np.ndarray, p: NavGraphParams, metric: str = "l2",
+                   algo: str = "vamana", device="cuda") -> NavGraph:
+    """The μ-sample (sorted ids from the seeded generator, as in JAX)
+    and its graph at degree Λ'."""
+    n = x.shape[0]
+    rng = np.random.default_rng(p.seed)
+    n_s = max(int(round(p.sample_ratio * n)), min(n, 8))
+    ids = np.sort(rng.choice(n, size=n_s, replace=False)).astype(np.int32)
+    sub = np.ascontiguousarray(x[ids], dtype=np.float32)
+    gp = GraphParams(max_degree=p.max_degree,
+                     build_beam=max(p.build_beam, p.max_degree),
+                     algo=algo, seed=p.seed)
+    g = G.build_graph(sub, gp, metric, device=device)
+    return NavGraph(graph=g, sample_ids=ids, vectors=sub)

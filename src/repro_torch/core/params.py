@@ -3,7 +3,8 @@ fields ``device_search.from_segment`` reads.
 
 Copies of ``repro.core.params`` / ``repro.configs.starling_segment``
 with the same field names, so one set of values drives both packages.
-Only the fields this package reads are kept. ``fetch_impl`` takes
+Only the fields this package reads are kept (the build's graph, layout,
+navigation-graph and budget knobs, the device search's). ``fetch_impl`` takes
 ``"fused"`` (the CUDA round kernels) or ``"ref"`` (the plain PyTorch
 round stage, the counterpart of the JAX ``"jnp"``).
 """
@@ -14,12 +15,28 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class GraphParams:
+    """Graph-index construction (Vamana / NSG)."""
     max_degree: int = 32          # Λ
+    build_beam: int = 64          # L (candidate list during construction)
+    alpha: float = 1.2            # Vamana robust-prune slack
+    algo: str = "vamana"          # vamana | nsg | hnsw
+    insert_batch: int = 256       # batched-insert chunk during build
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.build_beam < self.max_degree:
+            raise ValueError("L must be >= Λ (App. L)")
+        if self.algo not in ("vamana", "nsg", "hnsw"):
+            raise ValueError(f"unknown graph algo {self.algo!r}")
 
 
 @dataclasses.dataclass(frozen=True)
 class LayoutParams:
     block_kb: float = 4.0         # η
+    shuffle: str = "bnf"          # none | bnp | bnf | bns | kmeans | gp3
+    bnf_iters: int = 8            # β
+    bns_iters: int = 2            # β for BNS
+    gain_tau: float = 0.01        # τ
 
     def verts_per_block(self, dim: int, max_degree: int,
                         dtype_bytes: int = 4) -> int:
@@ -45,12 +62,19 @@ class PQParams:
 class NavGraphParams:
     sample_ratio: float = 0.1     # μ
     max_degree: int = 20          # Λ'
+    build_beam: int = 64
+    search_beam: int = 16         # beam when finding entry points
+    num_entry_points: int = 4     # entry points handed to the disk search
     seed: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
 class CacheParams:
-    """The device tier-0 budget fields (``CacheParams.tier0_*``)."""
+    """The host block-cache budget (``budget_*``, C_cache of Eq. 10; the
+    host cache is not ported, so ``core.segment.build_segment`` refuses
+    it) and the device tier-0 budget (``tier0_*``)."""
+    budget_bytes: int = 0         # absolute host block-cache budget
+    budget_frac: float = 0.0      # fraction of disk_bytes (if bytes == 0)
     tier0_bytes: int = 0          # absolute device hot-tile budget
     tier0_frac: float = 0.0       # fraction of disk_bytes (if bytes == 0)
 
@@ -58,6 +82,14 @@ class CacheParams:
         if not (0.0 <= self.tier0_frac <= 1.0) or self.tier0_bytes < 0:
             raise ValueError(
                 "tier0_frac must be in [0, 1] and tier0_bytes >= 0")
+        if not (0.0 <= self.budget_frac <= 1.0) or self.budget_bytes < 0:
+            raise ValueError(
+                "budget_frac must be in [0, 1] and budget_bytes >= 0")
+
+    @property
+    def enabled(self) -> bool:
+        """Whether the host block cache is asked for."""
+        return self.budget_bytes > 0 or self.budget_frac > 0.0
 
     def resolve_tier0_budget(self, disk_bytes: int) -> int:
         """Device hot-tile budget in bytes (Eq. 10's C_tier0 charge)."""
@@ -67,12 +99,22 @@ class CacheParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class SegmentBudget:
+    """Per-segment space budget (§2.2: <= 2 GB memory, <= 10 GB disk,
+    plus the cap on the device tier-0 pack)."""
+    memory_bytes: int = 2 << 30
+    disk_bytes: int = 10 << 30
+    tier0_vmem_bytes: int = 4 << 20
+
+
+@dataclasses.dataclass(frozen=True)
 class SegmentParams:
     graph: GraphParams = dataclasses.field(default_factory=GraphParams)
     layout: LayoutParams = dataclasses.field(default_factory=LayoutParams)
     pq: PQParams = dataclasses.field(default_factory=PQParams)
     nav: NavGraphParams = dataclasses.field(default_factory=NavGraphParams)
     cache: CacheParams = dataclasses.field(default_factory=CacheParams)
+    budget: SegmentBudget = dataclasses.field(default_factory=SegmentBudget)
     metric: str = "l2"            # l2 | ip
 
     def __post_init__(self):
@@ -130,14 +172,18 @@ class DeviceSearchParams:
             raise ValueError("round_tile_cap must be >= 0 (0 = BQ)")
 
 
-# the container-scale bench segment (repro.configs.starling_segment
-# SEGMENT_BENCH) with the device tier-0 hot-tile pack at 10% of the
-# block file — the fields the port reads
+# the bench segment (repro.configs.starling_segment SEGMENT_BENCH: the
+# paper's BIGANN knobs — Λ=24, L=64, α=1.2, BNF with β=8 and τ=0.001,
+# PQ M=8, navigation graph μ=0.1, Λ'=12, L'=32) and the same segment with
+# the device tier-0 hot-tile pack at 10% of the block file
 SEGMENT_BENCH = SegmentParams(
-    graph=GraphParams(max_degree=24),
-    layout=LayoutParams(block_kb=4.0),
+    graph=GraphParams(max_degree=24, build_beam=64, alpha=1.2,
+                      algo="vamana"),
+    layout=LayoutParams(block_kb=4.0, shuffle="bnf", bnf_iters=8,
+                        gain_tau=0.001),
     pq=PQParams(num_subspaces=8, num_centroids=256, train_iters=12),
-    nav=NavGraphParams(sample_ratio=0.1, max_degree=12),
+    nav=NavGraphParams(sample_ratio=0.1, max_degree=12, build_beam=32,
+                       search_beam=16, num_entry_points=4),
     metric="l2",
 )
 SEGMENT_BENCH_DEVICE = dataclasses.replace(

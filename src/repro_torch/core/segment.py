@@ -1,9 +1,15 @@
-"""The host ``Segment``: a built index as a container of numpy arrays.
+"""The host ``Segment``: a built index as a container of numpy arrays,
+its build (``build_segment``) and its space accounting (Eq. 10).
 
-A segment built by the JAX package reaches this package through
-``load_segment`` (the ``.npz`` that ``repro.core.segment.save_segment``
-writes) or ``segment_from_arrays`` (the same keys as a dict, which is
-also what ``data.synthetic.synthetic_segment`` returns).
+``build_segment`` runs the offline pipeline of Eq. 8 — disk graph
+(Vamana or NSG), block shuffling (BNP, BNF, GP3), the navigation graph
+on the μ-sample (NSG), PQ — and returns a ``Segment`` ready for
+``device_search.from_segment``. Segments travel both ways between the
+packages: ``save_segment`` writes every key ``repro.core.segment.
+load_segment`` reads, and ``load_segment`` reads the ``.npz`` that
+``repro.core.segment.save_segment`` writes (``segment_from_arrays``
+takes the same keys as a dict, which is also what ``data.synthetic.
+synthetic_segment`` returns).
 
 Arrays (ρ blocks of ε slots, N vertices, Λ max degree):
   vid [ρ, ε] i32 (-1 pad), vecs [ρ, ε, D] f32, meta [ρ, ε, 1+Λ] i32
@@ -11,18 +17,26 @@ Arrays (ρ blocks of ε slots, N vertices, Λ max degree):
   block_of / slot_of [N] i32, blocks [ρ, ε] — the layout;
   adj [N, Λ] i32, deg [N] i32, entry — the disk graph;
   pq_codes [N, M] u8, pq_cent [M, K, dsub] f32 — PQ routing;
-  nav_ids [n'] i32, nav_adj [n', Λ'] i32, nav_vecs [n', D] f32,
-  nav_entry — the navigation graph over a sample (local ids);
+  nav_ids [n'] i32, nav_adj [n', Λ'] i32, nav_deg [n'] i32,
+  nav_vecs [n', D] f32, nav_entry — the navigation graph over a sample
+  (local ids);
   block_kb, metric.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+import time
+from typing import Dict, Mapping, Optional
 
 import numpy as np
+import torch
 
+from repro_torch.core import graph as G
+from repro_torch.core import layout as L
+from repro_torch.core import navgraph as NG
+from repro_torch.core.blockstore import build_store
 from repro_torch.core.params import SegmentParams
+from repro_torch.pq.pq import encode_pq, train_pq
 
 _KEYS = ("adj", "deg", "entry", "blocks", "block_of", "slot_of", "vid",
          "vecs", "meta", "pq_codes", "pq_cent", "nav_ids", "nav_adj",
@@ -49,6 +63,14 @@ class Segment:
     block_kb: float
     metric: str
     params: SegmentParams
+    nav_deg: Optional[np.ndarray] = None      # [n'] i32; None: from nav_adj
+    build_times: Dict[str, float] = dataclasses.field(default_factory=dict)
+    overlap_ratio: float = float("nan")       # OR(G) of the layout (Eq. 5)
+    build_info: Dict = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.nav_deg is None:
+            self.nav_deg = (self.nav_adj >= 0).sum(1).astype(np.int32)
 
     @property
     def num_vectors(self) -> int:
@@ -58,9 +80,40 @@ class Segment:
     def num_blocks(self) -> int:
         return int(self.vid.shape[0])
 
+    @property
+    def graph(self) -> G.Graph:
+        return G.Graph(adj=self.adj, deg=self.deg, entry=self.entry,
+                       metric=self.metric)
+
+    @property
+    def layout(self) -> L.BlockLayout:
+        return L.BlockLayout(blocks=self.blocks, block_of=self.block_of,
+                             slot_of=self.slot_of)
+
     def disk_bytes(self) -> int:
         """The block file: ρ blocks of η KB."""
         return int(self.num_blocks * self.block_kb * 1024)
+
+    def memory_bytes(self) -> int:
+        """Eq. 10: C_graph (the navigation graph's vectors, adjacency,
+        degrees and ids) + C_mapping (block and slot per vertex) +
+        C_PQ (codes and centroids) + C_tier0 (the device hot-tile
+        budget). C_cache is 0: the host block cache is not ported."""
+        c_graph = (self.nav_vecs.nbytes + self.nav_adj.nbytes
+                   + self.nav_deg.nbytes + self.nav_ids.nbytes)
+        c_mapping = self.block_of.nbytes + self.slot_of.nbytes
+        c_pq = self.pq_codes.nbytes + self.pq_cent.nbytes
+        return c_graph + c_mapping + c_pq + self.tier0_bytes()
+
+    def tier0_bytes(self) -> int:
+        """C_tier0: the configured device hot-tile budget."""
+        return self.params.cache.resolve_tier0_budget(self.disk_bytes())
+
+    def check_budget(self) -> Dict[str, bool]:
+        b = self.params.budget
+        return {"memory_ok": self.memory_bytes() <= b.memory_bytes,
+                "disk_ok": self.disk_bytes() <= b.disk_bytes,
+                "tier0_ok": self.tier0_bytes() <= b.tier0_vmem_bytes}
 
 
 def segment_from_arrays(arrays: Mapping[str, np.ndarray],
@@ -97,7 +150,11 @@ def segment_from_arrays(arrays: Mapping[str, np.ndarray],
         nav_entry=int(np.asarray(a["nav_entry"])),
         block_kb=float(np.asarray(a["block_kb"])),
         metric=metric,
-        params=params)
+        params=params,
+        nav_deg=(np.asarray(a["nav_deg"], np.int32) if "nav_deg" in a
+                 else None),
+        overlap_ratio=(float(np.asarray(a["overlap"])) if "overlap" in a
+                       else float("nan")))
 
 
 def load_segment(path: str,
@@ -105,3 +162,81 @@ def load_segment(path: str,
     """Read a segment written by ``repro.core.segment.save_segment``."""
     with np.load(path, allow_pickle=False) as z:
         return segment_from_arrays({k: z[k] for k in z.files}, params)
+
+
+def _stage(times: Dict[str, float], name: str, t0: float,
+           device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    times[name] = time.perf_counter() - t0
+
+
+def build_segment(x: np.ndarray, params: SegmentParams,
+                  graph: Optional[G.Graph] = None,
+                  device="cuda") -> Segment:
+    """Build a segment over x [N, D]: disk graph (``params.graph.algo``,
+    unless ``graph`` is given), layout (``params.layout.shuffle``),
+    navigation graph (NSG on the μ-sample), PQ, block store.
+
+    ``build_times`` holds the seconds of each stage under the JAX keys
+    (``disk_graph_s``, ``shuffling_s``, ``memory_graph_s``, ``pq_s``);
+    ``build_info`` the graph stage's own counters (``knn_s`` and
+    ``attached`` for NSG, ``search_s`` and ``attached`` for Vamana) and
+    ``or_history``, OR(G) of the initial layout and after each
+    shuffling round."""
+    if params.cache.enabled:
+        raise NotImplementedError("the host block cache (C_cache) is not "
+                                  "ported; use a budget_* of 0")
+    dev = torch.device(device)
+    x = np.ascontiguousarray(x, np.float32)
+    times: Dict[str, float] = {}
+    info: Dict = {}
+
+    t0 = time.perf_counter()
+    g = graph if graph is not None else G.build_graph(
+        x, params.graph, params.metric, device=dev, stats=info)
+    _stage(times, "disk_graph_s", t0, dev)
+
+    eps = params.layout.verts_per_block(x.shape[1], g.max_degree)
+    t0 = time.perf_counter()
+    info["or_history"] = []
+    lay = L.make_layout(g, eps, params.layout.shuffle, x=x,
+                        bnf_iters=params.layout.bnf_iters,
+                        bns_iters=params.layout.bns_iters,
+                        tau=params.layout.gain_tau,
+                        history=info["or_history"])
+    _stage(times, "shuffling_s", t0, dev)
+    lay.validate()
+
+    t0 = time.perf_counter()
+    nav = NG.build_navgraph(x, params.nav, params.metric, algo="nsg",
+                            device=dev)
+    _stage(times, "memory_graph_s", t0, dev)
+
+    t0 = time.perf_counter()
+    cent = train_pq(x, params.pq, device=dev)
+    codes = encode_pq(x, cent, device=dev)
+    _stage(times, "pq_s", t0, dev)
+
+    store = build_store(x, g, lay, params.layout.block_kb)
+    return Segment(
+        vid=store.vid, vecs=store.vecs, meta=store.meta, blocks=lay.blocks,
+        block_of=lay.block_of, slot_of=lay.slot_of, adj=g.adj, deg=g.deg,
+        entry=int(g.entry), pq_codes=codes, pq_cent=cent,
+        nav_ids=nav.sample_ids, nav_adj=nav.graph.adj,
+        nav_vecs=nav.vectors, nav_entry=int(nav.graph.entry),
+        block_kb=float(params.layout.block_kb), metric=params.metric,
+        params=params, nav_deg=nav.graph.deg, build_times=times,
+        overlap_ratio=L.overlap_ratio(g, lay), build_info=info)
+
+
+def save_segment(seg: Segment, path: str) -> None:
+    """Write ``seg`` with every key ``repro.core.segment.load_segment``
+    reads."""
+    np.savez_compressed(
+        path, adj=seg.adj, deg=seg.deg, entry=seg.entry, blocks=seg.blocks,
+        block_of=seg.block_of, slot_of=seg.slot_of, vid=seg.vid,
+        vecs=seg.vecs, meta=seg.meta, pq_codes=seg.pq_codes,
+        pq_cent=seg.pq_cent, nav_ids=seg.nav_ids, nav_adj=seg.nav_adj,
+        nav_deg=seg.nav_deg, nav_entry=seg.nav_entry, nav_vecs=seg.nav_vecs,
+        metric=seg.metric, block_kb=seg.block_kb, overlap=seg.overlap_ratio)

@@ -7,15 +7,16 @@ the Vamana build takes at that size. It is not a build algorithm of the
 system. Its parts:
 
   * vectors: ``clustered_vectors``;
-  * disk graph: on the device, the exact k nearest neighbours of each
-    vertex (chunked matmul + ``torch.topk``) for Λ-4 of its Λ edges,
+  * disk graph: the exact k nearest neighbours of each vertex
+    (``core.distances.knn_graph``, through ``l2_tile`` on the card) for
+    Λ-4 of its Λ edges,
     plus 4 seeded random out-edges — the first follows one random cycle
     through all vertices, so every vertex is reachable from any other,
     the other three are uniform;
-  * entry: the medoid (the vertex nearest the mean);
-  * layout: the paper's one-pass Block Neighbor Padding (a copy of
-    ``repro.core.layout.layout_bnp`` and ``_from_block_of``);
-  * block store: a copy of ``repro.core.blockstore.build_store``;
+  * entry: the medoid (``core.graph.medoid``);
+  * layout: the paper's one-pass Block Neighbor Padding
+    (``core.layout.layout_bnp``);
+  * block store: ``core.blockstore.build_store``;
   * PQ: ``pq.train_pq`` / ``encode_pq`` with the params' M, K, iterations
     and sample;
   * navigation graph: a μ-sample (the same sampling as
@@ -33,16 +34,15 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import blockstore as B
+from repro_torch.core import distances as D
+from repro_torch.core import layout as L
+from repro_torch.core.graph import Graph, medoid
 from repro_torch.core.params import SEGMENT_BENCH_DEVICE, SegmentParams
 from repro_torch.data.vectors import clustered_vectors
 from repro_torch.pq.pq import encode_pq, train_pq
 
 RANDOM_EDGES = 4
-
-
-def _medoid(xt: torch.Tensor) -> int:
-    mean = xt.mean(dim=0)
-    return int(torch.argmin(torch.sum(torch.square(xt - mean), dim=1)))
 
 
 def knn_graph(xt: torch.Tensor, degree: int,
@@ -53,17 +53,7 @@ def knn_graph(xt: torch.Tensor, degree: int,
     k = degree - RANDOM_EDGES
     if n <= k:
         raise ValueError(f"{n} vertices cannot have {k} nearest neighbours")
-    sq = torch.sum(xt * xt, dim=1)
-    budget = 2 ** 30 if xt.device.type == "cuda" else 2 ** 25
-    chunk = max(1, min(n, budget // n))
-    near = np.empty((n, k), np.int32)
-    for s in range(0, n, chunk):
-        e = min(s + chunk, n)
-        d = sq[None, :] - 2.0 * (xt[s:e] @ xt.T)         # + |q|^2, constant
-        rows = torch.arange(e - s, device=xt.device)
-        d[rows, rows + s] = float("inf")
-        near[s:e] = torch.topk(d, k, dim=1, largest=False).indices.to(
-            torch.int32).cpu().numpy()
+    near = D.knn_graph(xt, k, device=xt.device)
     perm = rng.permutation(n)
     ring = np.empty(n, np.int64)
     ring[perm] = np.roll(perm, -1)
@@ -73,61 +63,19 @@ def knn_graph(xt: torch.Tensor, degree: int,
 
 
 def layout_bnp(adj: np.ndarray, deg: np.ndarray, eps: int):
-    """Block Neighbor Padding: scan ids ascending; place each unassigned
-    vertex, then pad its block with its unassigned neighbours.
+    """``core.layout.layout_bnp`` on the graph (adj, deg).
     Returns (blocks [ρ, ε], block_of [N], slot_of [N])."""
-    n = adj.shape[0]
-    rho = -(-n // eps)
-    block_of = [-1] * n
-    rows = adj.tolist()
-    degs = deg.tolist()
-    cur, fill = 0, 0
-    for u in range(n):
-        if block_of[u] >= 0:
-            continue
-        if fill >= eps:
-            cur, fill = cur + 1, 0
-        block_of[u] = cur
-        fill += 1
-        for v in rows[u][: degs[u]]:
-            if fill >= eps:
-                break
-            if block_of[v] < 0:
-                block_of[v] = cur
-                fill += 1
-        if fill >= eps:
-            cur, fill = cur + 1, 0
-    return _from_block_of(np.asarray(block_of, np.int32), rho, eps)
-
-
-def _from_block_of(block_of: np.ndarray, rho: int, eps: int):
-    """Invert vertex -> block into block slots, vertices in id order
-    within a block (``repro.core.layout._from_block_of``, vectorised)."""
-    n = block_of.shape[0]
-    order = np.argsort(block_of, kind="stable")
-    starts = np.concatenate([[0], np.cumsum(np.bincount(
-        block_of, minlength=rho))[:-1]])
-    slot_of = np.empty(n, np.int32)
-    slot_of[order] = np.arange(n) - starts[block_of[order]]
-    blocks = np.full((rho, eps), -1, np.int32)
-    blocks[block_of[order], slot_of[order]] = order
-    return blocks, block_of.astype(np.int32), slot_of
+    lay = L.layout_bnp(Graph(adj=adj, deg=deg, entry=0), eps)
+    return lay.blocks, lay.block_of, lay.slot_of
 
 
 def build_store(x: np.ndarray, adj: np.ndarray, deg: np.ndarray,
                 blocks: np.ndarray):
-    """(vid [ρ, ε], vecs [ρ, ε, D], meta [ρ, ε, 1+Λ]) in block order."""
-    rho, eps = blocks.shape
-    vid = blocks.copy()
-    vecs = np.zeros((rho, eps, x.shape[1]), np.float32)
-    meta = np.full((rho, eps, 1 + adj.shape[1]), -1, np.int32)
-    meta[:, :, 0] = 0
-    valid = vid >= 0
-    ids = vid[valid].astype(np.int64)
-    vecs[valid] = x[ids]
-    meta[valid, 0] = deg[ids]
-    meta[valid, 1:] = adj[ids]
-    return vid, vecs, meta
+    """``core.blockstore.build_store``: (vid [ρ, ε], vecs [ρ, ε, D],
+    meta [ρ, ε, 1+Λ]) in block order."""
+    lay = L.BlockLayout(blocks=blocks, block_of=None, slot_of=None)
+    st = B.build_store(x, Graph(adj=adj, deg=deg, entry=0), lay, 0.0)
+    return st.vid, st.vecs, st.meta
 
 
 def synthetic_segment(n: int, dim: int, seed: int = 0, device="cuda",
@@ -154,7 +102,7 @@ def synthetic_segment(n: int, dim: int, seed: int = 0, device="cuda",
     t0 = time.perf_counter()
     adj = knn_graph(xt, lam, rng)
     deg = np.full(n, lam, np.int32)
-    entry = _medoid(xt)
+    entry = medoid(x)
     stage("disk_graph_s", t0)
 
     t0 = time.perf_counter()
@@ -175,7 +123,7 @@ def synthetic_segment(n: int, dim: int, seed: int = 0, device="cuda",
         np.int32)
     sub = xt[torch.as_tensor(nav_ids, device=xt.device).long()]
     nav_adj = knn_graph(sub, params.nav.max_degree, rng)
-    nav_entry = _medoid(sub)
+    nav_entry = medoid(x[nav_ids])
     stage("nav_graph_s", t0)
     del xt, sub
 

@@ -1,13 +1,33 @@
-# Round kernels of the batched device search, hand-written in CUDA for
-# Hopper (csrc/tier0_fetch.cu), built by _build.py on first use:
-#   tier0_fetch — gather_union (batch union + one copy per distinct
-#                 block), gather_unique (the copy alone) and
-#                 fused_round_rank (tier-0 probe, broadcast, distances,
-#                 stable top-n_expand order), chained by fused_round
+# The hand-written CUDA kernels for Hopper (csrc/*.cu), built by
+# _build.py on first use, and their wrappers:
+#   tier0_fetch — the round kernels of the device search: gather_union
+#                 (batch union + one copy per distinct block),
+#                 gather_unique (the copy alone) and fused_round_rank
+#                 (tier-0 probe, broadcast, distances, stable
+#                 top-n_expand order), chained by fused_round
+#   l2_tile     — tiled exact distances, the build's brute force
+#   pq_adc      — batched PQ asymmetric distances
 #   dedup       — the sorted-unique / join-mask helpers the kernels'
 #                 plain versions and the loop's accounting share
 #   ref         — the plain PyTorch version of each kernel
-#   ops         — round_tile and the padding wrapper fused_round
+#   ops         — pairwise_l2, pq_adc_batch, round_tile and the padding
+#                 wrapper fused_round
+from repro_torch.kernels import l2_tile as _l2
+from repro_torch.kernels import pq_adc as _adc
+from repro_torch.kernels import tier0_fetch as _t0
 from repro_torch.kernels.dedup import join_mask, sorted_unique_ranks
-from repro_torch.kernels.ops import fused_round, round_tile
+from repro_torch.kernels.ops import (fused_round, pairwise_l2, pq_adc_batch,
+                                     round_tile)
 from repro_torch.kernels.tier0_fetch import LAUNCHES, reset_launches
+
+_COUNTED = (_t0, _l2, _adc)
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, by wrapper name."""
+    return {k: v for mod in _COUNTED for k, v in mod.LAUNCHES.items()}
+
+
+def reset_all_launches() -> None:
+    for mod in _COUNTED:
+        mod.reset_launches()

@@ -32,6 +32,13 @@ SIGNATURES = {
         "t0_rank": [P, P, P, P, I, P, I, P, P, P, I, P, P, P, I, I, I, I,
                     I, I, I, I, P, P, P, P, P, P],
     },
+    "l2_tile": {
+        "l2_tile_f32": [P, P, I, I, I, I, P, P],
+        "l2_tile_bf16": [P, P, I, I, I, I, P, P],
+    },
+    "pq_adc": {
+        "pq_adc": [P, P, I, I, I, I, I, P, P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -96,3 +103,26 @@ def check(code: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def stream() -> int:
+    """The current CUDA stream, as the C entry points take it."""
+    import torch
+    return torch.cuda.current_stream().cuda_stream
+
+
+def require(what: str, **tensors) -> None:
+    """Validate a kernel's CUDA operands, each given as (tensor, dtype or
+    tuple of dtypes): one card, contiguous, an accepted dtype."""
+    device = None
+    for name, (t, dtypes) in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} is on {t.device}, not cuda")
+        if device is not None and t.device != device:
+            raise ValueError(f"{what}: operands on {device} and {t.device}")
+        device = t.device
+        dtypes = dtypes if isinstance(dtypes, tuple) else (dtypes,)
+        if t.dtype not in dtypes:
+            raise TypeError(f"{what}: {name} is {t.dtype}, needs {dtypes}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")

@@ -1,12 +1,28 @@
-"""Dispatch wrappers around the round kernels: pad the batch to the
-rank pass's query tile and strip the padding from the outputs (copy of
-``repro.kernels.ops.round_tile`` / ``fused_round``)."""
+"""Dispatch wrappers around the kernels (the port's ``repro.kernels.
+ops``): ``pairwise_l2`` and ``pq_adc_batch`` at any shape (the CUDA
+kernels take any Q, N by bounds checks, so nothing is padded), and the
+round stage, padded to the rank pass's query tile with the padding
+stripped from the outputs (``round_tile`` / ``fused_round``)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import l2_tile as _l2
+from repro_torch.kernels import pq_adc as _adc
 from repro_torch.kernels import tier0_fetch as _t0
+
+
+def pairwise_l2(q: torch.Tensor, x: torch.Tensor,
+                metric: str = "l2") -> torch.Tensor:
+    """[Q, D] x [N, D] -> [Q, N] distances via the l2_tile kernel."""
+    return _l2.l2_tile(q.contiguous(), x.contiguous(), metric=metric)
+
+
+def pq_adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """codes [N, M] u8 x luts [B, M, K] -> [B, N] ADC distances."""
+    return _adc.pq_adc(codes.contiguous(),
+                       luts.to(torch.float32).contiguous())
 
 
 def round_tile(qn: int, cap: int = 0) -> int:

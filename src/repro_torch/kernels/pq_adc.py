@@ -1,0 +1,50 @@
+"""The batched PQ asymmetric-distance kernel (CUDA, ``csrc/pq_adc.cu``)
+and its wrapper.
+
+``pq_adc(codes, luts)`` gives ``out[b, n] = sum_m luts[b, m, codes[n,
+m]]`` for codes [N, M] u8 and LUTs [B, M, K] f32, as the [B, N] f32
+array of ``repro.kernels.ops.pq_adc_batch``. It replaces ``repro.
+kernels.pq_adc.pq_adc``: the TPU kernel's one-hot matmul becomes table
+lookups in shared memory. The kernel is bound by the bytes of its
+output, see the note at the top of the CUDA source.
+
+For CPU tensors the wrapper runs the plain version (``ref.pq_adc_ref``);
+for CUDA tensors it launches the kernel, or raises. Each launch adds one
+to ``LAUNCHES["pq_adc"]``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+LAUNCHES = {"pq_adc": 0}
+SMEM_BYTES = 96 * 1024    # the LUT tile a CTA stages in shared memory
+
+
+def reset_launches() -> None:
+    LAUNCHES["pq_adc"] = 0
+
+
+def pq_adc(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """codes [N, M] u8 x luts [B, M, K] f32 -> [B, N] f32."""
+    if codes.dim() != 2 or luts.dim() != 3 or codes.shape[1] != luts.shape[1]:
+        raise ValueError(f"pq_adc: shapes {tuple(codes.shape)} and "
+                         f"{tuple(luts.shape)} do not pair")
+    if codes.device.type == "cpu":
+        return ref.pq_adc_ref(luts, codes)
+    _build.require("pq_adc", codes=(codes, torch.uint8),
+                   luts=(luts, torch.float32))
+    n, m = codes.shape
+    b, _, k = luts.shape
+    table = m * k * 4
+    if table > SMEM_BYTES:
+        raise ValueError(f"pq_adc: one query's LUT ({table} B) exceeds the "
+                         f"{SMEM_BYTES} B shared-memory tile")
+    bq = max(1, min(b, SMEM_BYTES // table, 8))
+    out = torch.empty((b, n), dtype=torch.float32, device=codes.device)
+    lib = _build.load("pq_adc")
+    _build.check(lib.pq_adc(codes.data_ptr(), luts.data_ptr(), n, m, k, b,
+                            bq, out.data_ptr(), _build.stream()), "pq_adc")
+    LAUNCHES["pq_adc"] += 1
+    return out

@@ -1,11 +1,13 @@
-"""Plain PyTorch versions of the round kernels.
+"""Plain PyTorch versions of the kernels.
 
 ``fused_round_ref`` is the straight-gather oracle of the whole round
 stage (``repro.kernels.ref.fused_round_ref``); the search loop runs it
-under ``fetch_impl="ref"``. The other three are the plain versions of
-the CUDA kernels in ``kernels.tier0_fetch``: their wrappers run them
-for CPU tensors, and ``chip_smoke.py`` holds each kernel against its
-plain version on the card. Every index that the JAX package clamps is
+under ``fetch_impl="ref"``. The other three round functions are the
+plain versions of the CUDA kernels in ``kernels.tier0_fetch``;
+``pairwise_l2_ref`` and ``pq_adc_ref`` those of ``kernels.l2_tile`` and
+``kernels.pq_adc``. The wrappers run them for CPU tensors, and
+``chip_smoke.py`` holds each kernel against its plain version on the
+card. Every index that the JAX package clamps is
 clamped here too (JAX clamps out-of-range gathers; torch would raise).
 """
 from __future__ import annotations
@@ -13,6 +15,29 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import dedup
+
+
+def pairwise_l2_ref(q: torch.Tensor, x: torch.Tensor,
+                    metric: str = "l2") -> torch.Tensor:
+    """[Q, D] x [N, D] -> [Q, N] f32; squared L2 by the norm expansion
+    ``max(|q|^2 + |x|^2 - 2 q.x, 0)``, or the negated inner product."""
+    q32, x32 = q.to(torch.float32), x.to(torch.float32)
+    dot = q32 @ x32.T
+    if metric == "ip":
+        return -dot
+    qq = torch.sum(q32 * q32, dim=1, keepdim=True)
+    xx = torch.sum(x32 * x32, dim=1)
+    return torch.clamp_min(qq + xx[None, :] - 2.0 * dot, 0.0)
+
+
+def pq_adc_ref(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """luts [B, M, K] f32, codes [N, M] int -> [B, N] ADC distances,
+    summed over m in order (codes past K clamp, as JAX gathers do)."""
+    c = codes.long().clamp(0, luts.shape[2] - 1)
+    out = luts[:, 0, :][:, c[:, 0]]
+    for j in range(1, luts.shape[1]):
+        out = out + luts[:, j, :][:, c[:, j]]
+    return out
 
 
 def sq_dists(q: torch.Tensor, t: torch.Tensor, metric: str) -> torch.Tensor:

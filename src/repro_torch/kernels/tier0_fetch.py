@@ -45,25 +45,6 @@ def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _require(what: str, **tensors) -> None:
-    """Validate the CUDA operands: one card, contiguous, right dtypes."""
-    device = None
-    for name, (t, dtype) in tensors.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"{what}: {name} is on {t.device}, not cuda")
-        if device is not None and t.device != device:
-            raise ValueError(f"{what}: operands on {device} and {t.device}")
-        device = t.device
-        if t.dtype != dtype:
-            raise TypeError(f"{what}: {name} is {t.dtype}, needs {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} is not contiguous")
-
-
 def _store_operands(vecs, vid, nbrs):
     return {"vecs": (vecs, torch.float32), "vid": (vid, torch.int32),
             "nbrs": (nbrs, torch.int32)}
@@ -79,7 +60,7 @@ def _launch_gather(uniq, vecs, vid, nbrs):
     lib = _build.load("tier0_fetch")
     _build.check(lib.t0_gather(
         _ptr(uniq), r, _ptr(vecs), _ptr(vid), _ptr(nbrs), rho, eps, d, lam,
-        _ptr(tv), _ptr(ti), _ptr(tn), _stream()), "t0_gather")
+        _ptr(tv), _ptr(ti), _ptr(tn), _build.stream()), "t0_gather")
     return tv, ti, tn
 
 
@@ -89,8 +70,8 @@ def gather_unique(uniq: torch.Tensor, vecs: torch.Tensor,
     i32, nbrs [R, eps, Lam] i32): one copy of each listed block."""
     if uniq.device.type == "cpu":
         return ref.gather_unique_ref(uniq, vecs, vid, nbrs)
-    _require("gather_unique", uniq=(uniq, torch.int32),
-             **_store_operands(vecs, vid, nbrs))
+    _build.require("gather_unique", uniq=(uniq, torch.int32),
+                   **_store_operands(vecs, vid, nbrs))
     out = _launch_gather(uniq, vecs, vid, nbrs)
     LAUNCHES["gather_unique"] += 1
     return out
@@ -104,8 +85,8 @@ def gather_union(b: torch.Tensor, vecs: torch.Tensor, vid: torch.Tensor,
     slot's rank among them, and one copy of each union row's block."""
     if b.device.type == "cpu":
         return ref.gather_union_ref(b, vecs, vid, nbrs)
-    _require("gather_union", b=(b, torch.int32),
-             **_store_operands(vecs, vid, nbrs))
+    _build.require("gather_union", b=(b, torch.int32),
+                   **_store_operands(vecs, vid, nbrs))
     qn, f = b.shape
     r = qn * f
     if r > MAX_UNION:
@@ -115,7 +96,7 @@ def gather_union(b: torch.Tensor, vecs: torch.Tensor, vid: torch.Tensor,
     rank2d = torch.empty((qn, f), dtype=torch.int32, device=b.device)
     lib = _build.load("tier0_fetch")
     _build.check(lib.t0_union(_ptr(b), r, _ptr(uniq), _ptr(rank2d),
-                              _stream()), "t0_union")
+                              _build.stream()), "t0_union")
     tv, ti, tn = _launch_gather(uniq, vecs, vid, nbrs)
     LAUNCHES["gather_union"] += 1
     return uniq, rank2d, tv, ti, tn
@@ -135,13 +116,12 @@ def fused_round_rank(queries, u, rank2d, uniq, hot_slot_of, hot_vecs,
         return ref.fused_round_rank_ref(
             queries, u, rank2d, uniq, hot_slot_of, hot_vecs, hot_vid,
             hot_nbrs, tv, ti, tn, n_expand, metric=metric, bq=bq)
-    _require("fused_round_rank", queries=(queries, torch.float32),
-             u=(u, torch.int32), rank2d=(rank2d, torch.int32),
-             uniq=(uniq, torch.int32), hot_slot_of=(hot_slot_of, torch.int32),
-             hot_vecs=(hot_vecs, torch.float32),
-             hot_vid=(hot_vid, torch.int32),
-             hot_nbrs=(hot_nbrs, torch.int32),
-             **_store_operands(tv, ti, tn))
+    _build.require(
+        "fused_round_rank", queries=(queries, torch.float32),
+        u=(u, torch.int32), rank2d=(rank2d, torch.int32),
+        uniq=(uniq, torch.int32), hot_slot_of=(hot_slot_of, torch.int32),
+        hot_vecs=(hot_vecs, torch.float32), hot_vid=(hot_vid, torch.int32),
+        hot_nbrs=(hot_nbrs, torch.int32), **_store_operands(tv, ti, tn))
     r, eps, d = tv.shape
     lam = tn.shape[2]
     if n_expand > f * eps:
@@ -160,7 +140,7 @@ def fused_round_rank(queries, u, rank2d, uniq, hot_slot_of, hot_vecs,
         _ptr(hot_vid), _ptr(hot_nbrs), hot_vecs.shape[0], _ptr(tv),
         _ptr(ti), _ptr(tn), qn, f, eps, d, lam, n_expand, bq,
         1 if metric == "ip" else 0, _ptr(dd), _ptr(vid), _ptr(nbrs),
-        _ptr(hit), _ptr(order), _stream()), "t0_rank")
+        _ptr(hit), _ptr(order), _build.stream()), "t0_rank")
     LAUNCHES["fused_round_rank"] += 1
     return dd, vid, nbrs, hit, order
 

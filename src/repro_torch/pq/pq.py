@@ -1,5 +1,16 @@
 """Product quantization for memory-resident routing (torch port of
-``repro.pq.pq.train_pq`` / ``encode_pq``).
+``repro.pq.pq``).
+
+  train_pq     — per-subspace Lloyd k-means on a training sample; returns
+                 the centroids [M, K, dsub] (``PQCodebook`` wraps them)
+  encode_pq    — [N, M] uint8 codes
+  adc_lut      — per-query [M, K] lookup table of subspace distances
+  adc_lut_batch — [Q, M, K] for a batch of queries (``lut_batch`` on
+                 tensors, which the device search calls too)
+  adc_distance — sum of LUT entries along the codes, through
+                 ``kernels.ops.pq_adc_batch`` (the ``pq_adc`` CUDA kernel on
+                 the card)
+  reconstruct  — decode codes back to vectors
 
 The training sample and the initial centroids come from the same numpy
 generator calls as the JAX package, so for the same data and seed the
@@ -7,10 +18,35 @@ codebooks agree to float tolerance and the codes are equal.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from repro_torch.core.params import PQParams
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass
+class PQCodebook:
+    centroids: np.ndarray     # [M, K, dsub] float32
+    dim: int
+    metric: str = "l2"
+
+    @property
+    def num_subspaces(self) -> int:
+        return self.centroids.shape[0]
+
+    @property
+    def num_centroids(self) -> int:
+        return self.centroids.shape[1]
+
+    @property
+    def dsub(self) -> int:
+        return self.centroids.shape[2]
+
+    def memory_bytes(self) -> int:
+        return self.centroids.nbytes
 
 
 def _lloyd(x: torch.Tensor, init: torch.Tensor, iters: int) -> torch.Tensor:
@@ -72,3 +108,45 @@ def encode_pq(x, cent: np.ndarray, device="cuda",
         out[s:s + chunk] = torch.argmin(d, dim=-1).to(
             torch.uint8).cpu().numpy()
     return out
+
+
+def lut_batch(q: torch.Tensor, cent: torch.Tensor,
+              metric: str = "l2") -> torch.Tensor:
+    """q [Q, D], cent [M, K, dsub] (one device) -> LUTs [Q, M, K] f32:
+    each sub-vector's squared distance to each centroid (explicit
+    difference), or the negated partial inner product for ``ip``
+    (summing stays "smaller is better")."""
+    m, _, dsub = cent.shape
+    qs = q.reshape(q.shape[0], m, 1, dsub).to(torch.float32)
+    if metric == "ip":
+        return -torch.sum(cent[None] * qs, dim=-1)
+    return torch.sum(torch.square(cent[None] - qs), dim=-1)
+
+
+def adc_lut_batch(q, cb: PQCodebook, device="cuda") -> torch.Tensor:
+    """q [Q, D] (numpy or tensor) -> LUTs [Q, M, K] f32 on ``device``
+    (``lut_batch``)."""
+    qt = torch.as_tensor(np.asarray(q, np.float32) if isinstance(
+        q, np.ndarray) else q, device=device)
+    return lut_batch(qt, torch.as_tensor(cb.centroids, device=device),
+                     cb.metric)
+
+
+def adc_lut(q, cb: PQCodebook, device="cuda") -> torch.Tensor:
+    """One query [D] -> its LUT [M, K]."""
+    return adc_lut_batch(q.reshape(1, -1), cb, device=device)[0]
+
+
+def adc_distance(lut: torch.Tensor, codes) -> torch.Tensor:
+    """lut [M, K], codes [n, M] -> [n] approximate distances, through
+    the ``pq_adc`` kernel (its plain version for CPU tensors)."""
+    codes = torch.as_tensor(codes, device=lut.device)
+    return ops.pq_adc_batch(codes, lut[None])[0]
+
+
+def reconstruct(codes: np.ndarray, cb: PQCodebook) -> np.ndarray:
+    """Decode codes back to vectors (for error bounds in tests)."""
+    m = cb.centroids.shape[0]
+    parts = [cb.centroids[j, codes[:, j].astype(np.int64)]
+             for j in range(m)]
+    return np.concatenate(parts, axis=1)

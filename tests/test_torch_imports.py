@@ -24,8 +24,9 @@ def _imported(path: pathlib.Path):
 
 def test_port_has_files():
     assert len(FILES) > 10
-    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-            / "tier0_fetch.cu").exists()
+    for src in ("tier0_fetch.cu", "l2_tile.cu", "pq_adc.cu"):
+        assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+                / src).exists()
 
 
 @pytest.mark.parametrize("path", FILES,

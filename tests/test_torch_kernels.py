@@ -18,7 +18,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import dedup as TD
+from repro_torch.kernels import l2_tile as TL2
 from repro_torch.kernels import ops as TO
+from repro_torch.kernels import pq_adc as TPQ
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels import tier0_fetch as TT
 
@@ -203,10 +205,49 @@ def test_fused_round_ref_matches_jax_ref():
 
 
 def test_cpu_wrappers_launch_nothing():
-    TT.reset_launches()
+    from repro_torch import kernels as K
+    K.reset_all_launches()
     args = _round_case(16, 32, 4, 16, 2, 8)
     TO.fused_round(*[torch.as_tensor(a) for a in args], 4)
-    assert all(v == 0 for v in TT.LAUNCHES.values())
+    TO.pairwise_l2(torch.ones(3, 4), torch.ones(5, 4))
+    TO.pq_adc_batch(torch.zeros(6, 2, dtype=torch.uint8), torch.ones(1, 2, 4))
+    assert all(v == 0 for v in K.launch_counts().values())
+    assert set(K.launch_counts()) == {"gather_union", "fused_round_rank",
+                                      "gather_unique", "l2_tile", "pq_adc"}
+
+
+# the JAX kernel sweeps' shapes and tolerances (tests/test_kernels.py)
+@pytest.mark.parametrize("q,n,d", [(8, 64, 16), (37, 203, 64), (1, 9, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_pairwise_l2_matches_jax(q, n, d, dtype, metric):
+    import jax.numpy as jnp
+    from repro import kernels as JK
+    rng = np.random.default_rng(q * n)
+    qa = rng.standard_normal((q, d)).astype(np.float32)
+    xa = rng.standard_normal((n, d)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(JK.pairwise_l2(jnp.asarray(qa, jd), jnp.asarray(xa, jd),
+                                     metric=metric))
+    got = TO.pairwise_l2(torch.as_tensor(qa).to(td),
+                         torch.as_tensor(xa).to(td), metric=metric)
+    assert got.dtype == torch.float32 and got.shape == (q, n)
+    tol = 1e-3 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol * d)
+
+
+@pytest.mark.parametrize("n,m,k,b", [(64, 4, 16, 1), (133, 8, 256, 5),
+                                     (17, 2, 64, 2)])
+def test_pq_adc_batch_matches_jax(n, m, k, b):
+    import jax.numpy as jnp
+    from repro import kernels as JK
+    rng = np.random.default_rng(n * m)
+    codes = rng.integers(0, k, (n, m)).astype(np.uint8)
+    luts = rng.standard_normal((b, m, k)).astype(np.float32)
+    want = np.asarray(JK.pq_adc_batch(jnp.asarray(codes), jnp.asarray(luts)))
+    got = TO.pq_adc_batch(torch.as_tensor(codes), torch.as_tensor(luts))
+    assert got.shape == (b, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------- on the card
@@ -269,3 +310,43 @@ def test_cuda_fused_round_matches_plain(cuda, case, metric):
                                 torch.as_tensor(u), f * 2)
     own = np.where(live[:, None], own.numpy(), 0)
     np.testing.assert_array_equal(got[4].cpu().numpy(), own)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n,d", [(8, 64, 16), (37, 203, 64), (1, 9, 8),
+                                   (300, 1029, 128), (129, 257, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_l2_tile_matches_plain(cuda, q, n, d, dtype, metric):
+    """f32 sums in another order than cuBLAS: atol 1e-3 on values of a
+    few hundred (bf16 inputs are cast to f32 first, so the same)."""
+    rng = np.random.default_rng(q * n)
+    qa = torch.as_tensor(rng.standard_normal((q, d)), dtype=dtype,
+                         device=cuda)
+    xa = torch.as_tensor(rng.standard_normal((n, d)), dtype=dtype,
+                         device=cuda)
+    TL2.reset_launches()
+    got = TL2.l2_tile(qa, xa, metric=metric)
+    torch.cuda.synchronize()
+    assert TL2.LAUNCHES["l2_tile"] == 1
+    want = TR.pairwise_l2_ref(qa, xa, metric=metric)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,k,b", [(64, 4, 16, 1), (133, 8, 256, 5),
+                                     (17, 2, 64, 2), (10000, 8, 256, 37),
+                                     (5000, 16, 256, 9)])
+def test_cuda_pq_adc_matches_plain(cuda, n, m, k, b):
+    """The kernel sums over m in the plain version's order: equal."""
+    rng = np.random.default_rng(n * m)
+    codes = torch.as_tensor(rng.integers(0, k, (n, m)).astype(np.uint8),
+                            device=cuda)
+    luts = torch.as_tensor(rng.standard_normal((b, m, k)).astype(np.float32),
+                           device=cuda)
+    TPQ.reset_launches()
+    got = TPQ.pq_adc(codes, luts)
+    torch.cuda.synchronize()
+    assert TPQ.LAUNCHES["pq_adc"] == 1
+    torch.testing.assert_close(got, TR.pq_adc_ref(luts, codes), rtol=1e-6,
+                               atol=0)
