@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero without
 
-It drives the port's two paths — the segment build
-(``core.segment.build_segment``) and the batched device search as
-``SegmentServer.search`` serves it — on a 1,000,000 x 128 segment built
-from seeded clustered vectors, and checks them:
+It drives the port's paths — the segment build
+(``core.segment.build_segment``), the batched device search as
+``SegmentServer.search`` serves it, the range search, the online tier-0
+repack and the hybrid hot tier with inserts and tombstones — on a
+1,000,000 x 128 segment built from seeded clustered vectors, and checks
+them:
 
   1. card: name and power limit (``nvidia-smi``);
   2. build kernels: compiles every source of ``kernels/csrc`` (one
@@ -28,9 +30,14 @@ from seeded clustered vectors, and checks them:
      selection key); ``l2_tile`` on the build's kNN chunk, 2,048 of the
      vectors x all 1M (atol 1e-2 / rtol 1e-5), and the kNN ids of 4,096
      sampled vertices in such chunks; ``pq_adc`` on the segment's codes x
-     a 1,024-query batch's LUTs (rtol 1e-5) — each timed with CUDA events
-     next to its plain version and one library call (``torch.cdist``,
-     ``embedding_bag``);
+     a 1,024-query batch's LUTs (rtol 1e-5); ``tier0_fetch_rank`` on the
+     first round's queries, target blocks, the 10% tier-0 pack and the
+     cold store (hit equal, atol 1e-4 / rtol 1e-5); ``block_topk`` on
+     the tiles of that round at top_m = n_expand and at the kernel
+     micro-bench's [128, 16, 128], m = 5 (atol 1e-3 / rtol 1e-5, the
+     slots the stable order of its own distances) — each timed with CUDA
+     events next to its plain version and one library call where one
+     computes the same function (``torch.cdist``, ``embedding_bag``);
   6. serve: one warm-up batch, then 8 batches of 1,024 queries, k=10,
      with recall@10 against the brute-force oracle (``distances.
      brute_force_knn``, through ``l2_tile``; its ids equal the plain
@@ -41,7 +48,24 @@ from seeded clustered vectors, and checks them:
      (recall within ±0.01 of the kernel path);
   8. profile: one batch under ``torch.profiler`` — device busy time, the
      idle share of the batch, the ops that take the device time;
-  9. summary: one JSON line of the kernels, the card line, and last
+  9. range: ``device_range_search`` on 2 batches of 1,024 queries at
+     the served knobs, 3 rounds, k_cap 256 (Γ 64 -> 128 -> 256), radius
+     the median 10th-NN distance by the ``l2_tile`` oracle; every
+     in-range id within the radius at its exact distance, recall of the
+     in-range sets against ``distances.brute_force_range`` (printed),
+     ``io`` below three from-scratch searches at Γ 64/128/256, launches
+     following the rounds;
+ 10. repack: ``SegmentServer(host=...).repack`` with the per-block
+     demand of the served results; ``changed`` > 0, the same ids and
+     distances before and after, ``io + tier0_hits`` equal per query,
+     the new pack exact copies of its blocks;
+ 11. hybrid: ``build_hot_tier`` (10% = 100,000 vectors, NSG of degree
+     16), 4 batches through a hybrid server beside the plain one
+     (recall@10, batch ms, ``hot_tier_hits``), then 1,024 inserts and
+     1% of the base ids tombstoned in both tiers, served again: no
+     tombstoned id returned; 64 inserted vectors as queries, each that
+     the hot route reaches first at distance 0 (the share printed);
+ 12. summary: one JSON line of the kernels, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 Every served batch is checked: 10 distinct ids per query with ascending
@@ -74,6 +98,9 @@ KNN_ROWS = 4096                      # sampled vertices of the kNN check
 KNN_CHUNK = 2048                     # distances.knn_graph's row chunk
 L2_ATOL, L2_RTOL = 1e-2, 1e-5        # f32 order, squared norms ~1e4
 ITERS = 50                           # launches per kernel timing
+SPIN_CYCLES = 2_000_000              # ~1 ms of card clock before each one
+RANGE_BATCHES, HYBRID_BATCHES = 2, 4 # batches of the range and hybrid
+INSERTS, SELF_QUERIES = 1024, 64     # hybrid inserts; those queried back
 CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "gather_union": ("tier0_fetch.cu",
@@ -84,7 +111,12 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                       "src/repro/kernels/tier0_fetch.py:167"),
     "l2_tile": ("l2_tile.cu", "src/repro/kernels/l2_tile.py:43"),
     "pq_adc": ("pq_adc.cu", "src/repro/kernels/pq_adc.py:48"),
+    "tier0_fetch_rank": ("tier0_fetch.cu",
+                         "src/repro/kernels/tier0_fetch.py:444"),
+    "block_topk": ("block_topk.cu", "src/repro/kernels/block_topk.py:51"),
 }
+# kernels of the kernel API alone: their counts are read over every path
+OFF_PATH = ("pq_adc", "tier0_fetch_rank", "block_topk")
 
 
 class SmokeFailure(Exception):
@@ -120,7 +152,10 @@ def sync(device) -> None:
 def time_ms(fn, device, iters: int, flush=None) -> float:
     """Mean ms of ``fn()``: CUDA events around each call, with the L2
     flushed before each (the round's blocks are cold in L2 when the
-    search asks for them); host clock on the CPU."""
+    search asks for them) and the card kept busy (``torch.cuda._sleep``)
+    while the host enqueues the call, so a call whose device work is
+    shorter than its host path reads its device time; host clock on the
+    CPU."""
     for _ in range(3):
         fn()
     sync(device)
@@ -133,6 +168,7 @@ def time_ms(fn, device, iters: int, flush=None) -> float:
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -200,10 +236,12 @@ def main() -> int:
     from repro_torch.core import graph as G
     from repro_torch.core import layout as L
     from repro_torch.core.params import (SEGMENT_BENCH_DEVICE,
-                                         SERVE_DEVICE_SEARCH)
+                                         SERVE_DEVICE_SEARCH, HotTierParams)
     from repro_torch.core.segment import build_segment
     from repro_torch.data.vectors import clustered_vectors, query_set
+    from repro_torch.io.hottier import build_hot_tier
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import block_topk as BT
     from repro_torch.kernels import l2_tile as L2
     from repro_torch.kernels import pq_adc as PQK
     from repro_torch.kernels import tier0_fetch as T0
@@ -248,7 +286,8 @@ def main() -> int:
         seg = build_segment(x, params, device=device)
         built = K.launch_counts()
         launches["l2_tile"] = built["l2_tile"]
-        launches["pq_adc"] = built["pq_adc"]
+        for name in OFF_PATH:
+            launches[name] = built[name]
         bt, info = seg.build_times, seg.build_info
         for k, v in bt.items():
             print(f"  {k}: {v:.3f}")
@@ -403,6 +442,60 @@ def main() -> int:
                 *rargs, bq=bq), device, ITERS, flush),
             "library_ms": None}
 
+        # tier0_fetch_rank on the same round: its queries, the target
+        # blocks block_of[u], the 10% pack and the cold store
+        t0_args = (q0, b, ds.hot_slot_of, ds.hot_vecs, ds.vecs)
+        got_d, got_h = T0.tier0_fetch_rank(*t0_args)
+        want_d, want_h = ref.tier0_fetch_rank_ref(*t0_args)
+        check(torch.equal(got_h, want_h), "tier0_fetch_rank hit differs")
+        check(torch.allclose(got_d, want_d, atol=1e-4, rtol=1e-5),
+              "tier0_fetch_rank dists outside atol 1e-4 / rtol 1e-5")
+        kern["tier0_fetch_rank"] = {
+            "max_abs_err": float((got_d - want_d).abs().max()),
+            "bytes": (nq * DIM * 4 + 2 * r * 4 + ndist * eps * DIM * 4
+                      + nq * fe * 4 + r * 4),
+            "ops": 3 * nq * fe * DIM,
+            "ms": time_ms(lambda: T0.tier0_fetch_rank(*t0_args), device,
+                          ITERS, flush),
+            "plain_ms": time_ms(lambda: ref.tier0_fetch_rank_ref(*t0_args),
+                                device, ITERS, flush),
+            "library_ms": None}
+        print(f"  tier0_fetch_rank: {int(got_h.sum())} of {r} targets hot")
+
+        # block_topk on the tiles of that round (each query's first
+        # target block) at top_m = n_expand, and at the kernel
+        # micro-bench's shape [128, 16, 128], m = 5
+        tiles_r = ds.vecs[b[:, 0].long()].contiguous()
+        rng_m = torch.Generator(device="cpu").manual_seed(args.seed)
+        q_m = torch.randn((128, DIM), generator=rng_m).to(device)
+        t_m = torch.randn((128, 16, DIM), generator=rng_m).to(device)
+        err = 0.0
+        for qq, tt, m in ((q0, tiles_r, n_expand), (q_m, t_m, 5)):
+            got_d, got_i = BT.block_topk(qq, tt, m)
+            want_d, _ = ref.block_topk_ref(qq, tt, m)
+            check(torch.allclose(got_d, want_d, atol=1e-3, rtol=1e-5),
+                  "block_topk dists outside atol 1e-3 / rtol 1e-5")
+            own = torch.argsort(got_d, dim=1, stable=True)[:, :m]
+            check(torch.equal(got_i[:, :own.shape[1]], own.to(torch.int32))
+                  and not bool(got_i[:, own.shape[1]:].any()),
+                  "block_topk slots are not the stable order of its own "
+                  "distances")
+            err = max(err, float((got_d - want_d).abs().max()))
+            ms = time_ms(lambda: BT.block_topk(qq, tt, m), device, ITERS,
+                         flush)
+            print(f"  block_topk [{qq.shape[0]} x {tt.shape[1]} x {DIM}] "
+                  f"m={m}: {ms:.6f} ms")
+        kern["block_topk"] = {
+            "max_abs_err": err,
+            "bytes": (nq * DIM * 4 + nq * eps * DIM * 4 + nq * eps * 4
+                      + nq * n_expand * 4),
+            "ops": 4 * nq * eps * DIM,
+            "ms": time_ms(lambda: BT.block_topk(q0, tiles_r, n_expand),
+                          device, ITERS, flush),
+            "plain_ms": time_ms(lambda: ref.block_topk_ref(
+                q0, tiles_r, n_expand), device, ITERS, flush),
+            "library_ms": None}
+
         # l2_tile at the shape the build gives it: a kNN chunk of the
         # segment's own vectors against all of them
         xt = torch.as_tensor(x, device=device)
@@ -517,11 +610,14 @@ def main() -> int:
             sync(device)
             return ids, dists, (time.perf_counter() - t0) * 1e3
 
-        def check_results(qb, ids, dists):
+        def check_results(qb, ids, dists, table=None):
             """Shape, finiteness, ascending distances, no repeated id,
-            and each distance the exact one of its id (f32 sums in
-            another order: rtol 1e-4, atol 1e-3)."""
-            check(ids.shape == (nq, 10) and dists.shape == (nq, 10),
+            and each distance the exact one of its id in ``table`` (the
+            segment's vectors by default; f32 sums in another order:
+            rtol 1e-4, atol 1e-3)."""
+            table = xt if table is None else table
+            rows = qb.shape[0]
+            check(ids.shape == (rows, 10) and dists.shape == (rows, 10),
                   f"result shapes {ids.shape} {dists.shape}")
             check(bool((ids >= 0).all() and np.isfinite(dists).all()),
                   "a query returned fewer than 10 results")
@@ -531,7 +627,8 @@ def main() -> int:
                   "a query returned an id twice")
             qt = torch.as_tensor(qb, device=device)
             it = torch.as_tensor(ids, device=device).long()
-            exact = torch.sum(torch.square(xt[it] - qt[:, None, :]), dim=-1)
+            exact = torch.sum(torch.square(table[it] - qt[:, None, :]),
+                              dim=-1)
             check(torch.allclose(torch.as_tensor(dists, device=device),
                                  exact, rtol=1e-4, atol=1e-3),
                   "returned distances are not the ids' exact distances")
@@ -555,7 +652,8 @@ def main() -> int:
         served_launches = K.launch_counts()
         for name in ("gather_union", "fused_round_rank"):
             launches[name] = served_launches[name]
-        launches["pq_adc"] += served_launches["pq_adc"]
+        for name in OFF_PATH:
+            launches[name] += served_launches[name]
         print(f"  batch ms median {np.median(lat):.3f} max {max(lat):.3f}"
               f" ({BATCHES} batches); QPS at the median "
               f"{nq / np.median(lat) * 1e3:.1f}; ms per round "
@@ -591,7 +689,8 @@ def main() -> int:
         r2 = srv2.batch_stats()["rounds"]
         two_pass = K.launch_counts()
         launches["gather_unique"] = two_pass["gather_unique"]
-        launches["pq_adc"] += two_pass["pq_adc"]
+        for name in OFF_PATH:
+            launches[name] += two_pass[name]
         print(f"  two-pass union batch: {ms:.3f} ms, rounds {r2}, "
               f"launches {two_pass}")
         check(np.array_equal(ids_f, ids_2),
@@ -600,9 +699,9 @@ def main() -> int:
             check(two_pass["gather_unique"] == r2 > 0
                   and two_pass["gather_union"] == 0,
                   "two-pass launches do not follow the rounds")
-        # pq_adc is the kernel API's entry (ops.pq_adc_batch): the count
-        # read over the build and the served batches says whether either
-        # path called it
+        # pq_adc, tier0_fetch_rank and block_topk are the kernel API's
+        # entries (ops): the counts read over every path say whether one
+        # called them
 
     with phase("7 kernel path against plain path"):
         qb = batches[BATCHES + 2]
@@ -656,6 +755,214 @@ def main() -> int:
                 print(f"    {e.key[:56]:56s} calls {e.count:6d} device "
                       f"{getattr(e, 'self_device_time_total', 0) / 1e3:9.3f}"
                       f" ms host {e.self_cpu_time_total / 1e3:9.3f} ms")
+
+    # the new phases' queries: a second seeded set, so the batches of
+    # phases 5-8 stay those of earlier runs
+    extra = query_set(x, nq * (RANGE_BATCHES + HYBRID_BATCHES + 1), seed=2)
+    extra = [extra[i * nq:(i + 1) * nq]
+             for i in range(RANGE_BATCHES + HYBRID_BATCHES + 1)]
+
+    def count_off_path():
+        got = K.launch_counts()
+        for name in OFF_PATH:
+            launches[name] += got[name]
+        return got
+
+    with phase("9 range"):
+        k_cap, rs_rounds = 256, 3
+        q_r = torch.as_tensor(extra[0], device=device)
+        nn10 = torch.as_tensor(oracle(extra[0])[:, 9], device=device).long()
+        d10 = torch.sum(torch.square(xt[nn10] - q_r), dim=-1)
+        radius = float(torch.median(d10))
+        print(f"  radius {radius:.6f}: the median 10th-NN distance of the "
+              f"first batch (l2_tile oracle)")
+        K.reset_all_launches()
+        ranged, rs_total = [], 0
+        for qb in extra[:RANGE_BATCHES]:
+            qt = torch.as_tensor(qb, device=device)
+            sync(device)
+            t0 = time.perf_counter()
+            rr = DS.device_range_search(ds, qt, radius, k_cap=k_cap, p=p,
+                                        rounds=rs_rounds)
+            sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+            ranged.append(rr)
+            rs_total += rr.rounds
+            print(f"  batch: {ms:.3f} ms, rounds {rr.rounds}, io "
+                  f"{float(rr.io.float().mean()):.3f}, tier0_hits "
+                  f"{float(rr.tier0_hits.float().mean()):.3f}, in range "
+                  f"{float(rr.in_range.sum(1).float().mean()):.3f} per query")
+        rs_launch = count_off_path()
+        print(f"  launches {rs_launch}, rounds {rs_total}")
+        if on_card:
+            check(rs_launch["gather_union"] == rs_total > 0
+                  and rs_launch["fused_round_rank"] == rs_total,
+                  "range launches do not follow the rounds")
+        hits = want_n = capped = 0
+        for qb, rr in zip(extra[:RANGE_BATCHES], ranged):
+            qt = torch.as_tensor(qb, device=device)
+            inr = rr.in_range
+            ids_r = rr.ids.long()
+            check(bool((ids_r[inr] >= 0).all()), "an in-range slot is empty")
+            check(bool((rr.dists[inr] <= radius).all()),
+                  "an in-range distance exceeds the radius")
+            exact = torch.sum(torch.square(
+                xt[ids_r.clamp_min(0)] - qt[:, None, :]), dim=-1)
+            check(torch.allclose(rr.dists[inr], exact[inr], rtol=1e-4,
+                                 atol=1e-3),
+                  "in-range distances are not the ids' exact distances")
+            gt = D.brute_force_range(xt, qt, radius, device=device)
+            got_ids = ids_r.cpu().numpy()
+            got_in = inr.cpu().numpy()
+            for row, inrow, want in zip(got_ids, got_in, gt):
+                got_set = set(row[inrow].tolist())
+                check(len(got_set) == int(inrow.sum()),
+                      "an in-range id repeats")
+                hits += len(got_set & set(want.tolist()))
+                want_n += len(want)
+                capped += min(len(want), k_cap)
+        sizes = [len(w) for w in gt]
+        print(f"  range recall {hits / max(want_n, 1):.4f} ({hits} of "
+              f"{want_n} in-range ids of the brute force; "
+              f"{hits / max(capped, 1):.4f} of the {capped} a k_cap="
+              f"{k_cap} result can hold); brute-force in-range ids per "
+              f"query of the last batch: median {int(np.median(sizes))}, "
+              f"max {max(sizes)}")
+        qt = torch.as_tensor(extra[0], device=device)
+        scratch = {c: float(DS.device_anns(ds, qt, dataclasses.replace(
+            p, k=c, candidates=c)).io.float().mean()) for c in (64, 128, 256)}
+        io3, io_scratch = float(ranged[0].io.float().mean()), sum(
+            scratch.values())
+        print(f"  io per query after 3 rounds {io3:.3f}; from scratch at "
+              f"Γ 64/128/256 {scratch}; ratio {io3 / io_scratch:.4f}")
+        check(io3 < io_scratch, "range io is not below three from-scratch "
+              "searches")
+
+    with phase("10 repack"):
+        observed = {}
+        for ids, _ in served:
+            blk = seg.block_of[ids[ids >= 0]]
+            for bb, cnt in zip(*np.unique(blk, return_counts=True)):
+                observed[int(bb)] = observed.get(int(bb), 0) + int(cnt)
+        srv_h = SegmentServer(segment=ds, offset=0,
+                              num_vectors=seg.num_vectors, params=p,
+                              device=args.device, host=seg)
+        qb = extra[RANGE_BATCHES]
+        K.reset_all_launches()
+        ids0, d0, _ = serve(qb, srv_h)
+        st0 = srv_h.batch_stats()
+        t0 = time.perf_counter()
+        changed = srv_h.repack(observed)
+        sync(device)
+        print(f"  repack of {len(DS.hot_pack_blocks(ds))} slots from the "
+              f"demand of {len(observed)} blocks: changed {changed} in "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+        check(changed > 0, "the repack changed no slot")
+        ids1, d1, _ = serve(qb, srv_h)
+        st1 = srv_h.batch_stats()
+        count_off_path()
+        check_results(qb, ids0, d0)
+        check(np.array_equal(ids0, ids1) and np.array_equal(d0, d1),
+              "the repack changed the results")
+        check(np.array_equal(st0["io"] + st0["tier0_hits"],
+                             st1["io"] + st1["tier0_hits"]),
+              "the repack changed io + tier0_hits")
+        print(f"  tier0_hits per query {st0['tier0_hits'].mean():.3f} -> "
+              f"{st1['tier0_hits'].mean():.3f}; io {st0['io'].mean():.3f} "
+              f"-> {st1['io'].mean():.3f}")
+        new = srv_h.segment
+        packed = torch.nonzero(new.hot_slot_of >= 0).squeeze(1)
+        slot = new.hot_slot_of[packed].long()
+        check(torch.equal(new.hot_vecs[slot], new.vecs[packed])
+              and torch.equal(new.hot_vid[slot], new.vid[packed])
+              and torch.equal(new.hot_nbrs[slot], new.nbrs[packed]),
+              "the new pack is not an exact copy of its blocks")
+        del srv_h, new
+
+    with phase("11 hybrid"):
+        K.reset_all_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        hot = build_hot_tier(seg, HotTierParams(), device=device)
+        sync(device)
+        print(f"  build_hot_tier: {hot.size} vectors, degree "
+              f"{hot.adj.shape[1]} (avg {hot.deg[:hot.size].mean():.3f}), "
+              f"{time.perf_counter() - t0:.3f} s, memory_bytes "
+              f"{hot.memory_bytes()}")
+        hyb = SegmentServer(segment=ds, offset=0,
+                            num_vectors=seg.num_vectors, params=p,
+                            device=args.device, host=seg, hot_tier=hot)
+        hb = extra[RANGE_BATCHES + 1:RANGE_BATCHES + 1 + HYBRID_BATCHES]
+        serve(hb[0], hyb)                                   # warm-up
+        plain_ms, hyb_ms, plain_ids, hyb_ids, hot_hits = [], [], [], [], []
+        for qb in hb:
+            ids_p, d_p, ms_p = serve(qb, srv)
+            io_p = srv.batch_stats()["io"].mean()
+            rounds_p = srv.batch_stats()["rounds"]
+            ids_h, d_h, ms_h = serve(qb, hyb)
+            st = hyb.batch_stats()
+            check_results(qb, ids_p, d_p)
+            check_results(qb, ids_h, d_h)
+            plain_ms.append(ms_p)
+            hyb_ms.append(ms_h)
+            plain_ids.append(ids_p)
+            hyb_ids.append(ids_h)
+            hot_hits.append(st["hot_tier_hits"].mean())
+            print(f"  batch: plain {ms_p:.3f} ms, hybrid {ms_h:.3f} ms; "
+                  f"rounds {rounds_p} -> {st['rounds']}; io {io_p:.3f} -> "
+                  f"{st['io'].mean():.3f}, hot_tier_hits "
+                  f"{st['hot_tier_hits'].mean():.3f} per query")
+        truth_h = np.concatenate([oracle(qb) for qb in hb])
+        rec_p = recall(np.concatenate(plain_ids), truth_h)
+        rec_h = recall(np.concatenate(hyb_ids), truth_h)
+        print(f"  recall@10 plain {rec_p:.4f} hybrid {rec_h:.4f}; batch "
+              f"ms median plain {np.median(plain_ms):.3f} hybrid "
+              f"{np.median(hyb_ms):.3f}; hot_tier_hits "
+              f"{np.mean(hot_hits):.3f} per query")
+
+        # inserts, then 1% of the base tombstoned in both tiers
+        new_v = query_set(x, INSERTS, seed=3)
+        gids = np.arange(args.n, args.n + INSERTS)
+        sync(device)
+        t0 = time.perf_counter()
+        hot.insert(new_v, gids)
+        sync(device)
+        ins_s = time.perf_counter() - t0
+        dead = np.random.default_rng(args.seed + 4).choice(
+            args.n, args.n // 100, replace=False)
+        tomb = np.zeros(args.n, bool)
+        tomb[dead] = True
+        in_hot = sum(hot.delete(int(g)) for g in dead)
+        print(f"  insert {INSERTS}: {ins_s:.3f} s ({ins_s / INSERTS * 1e3:.3f}"
+              f" ms each); tombstoned {dead.size} base ids, {in_hot} of them"
+              f" hot; hot tier size {hot.size}, live {hot.live_count}")
+        hyb = dataclasses.replace(hyb, tombstones=tomb)
+        table = torch.cat([xt, torch.as_tensor(new_v, device=device)])
+        qb = extra[-1]
+        ids_t, d_t, ms_t = serve(qb, hyb)
+        check_results(qb, ids_t, d_t, table)
+        check(not bool(tomb[ids_t[ids_t < args.n]].any()),
+              "a tombstoned id was returned")
+        # each inserted vector as a query: where the hot route reaches it,
+        # it comes first at distance 0 (the route is a beam search, so
+        # it need not reach every one; the share is printed)
+        selfq = new_v[:SELF_QUERIES]
+        ids_s, d_s, _ = serve(selfq, hyb)
+        check_results(selfq, ids_s, d_s, table)
+        own = gids[:SELF_QUERIES, None]
+        found = (ids_s == own).any(1)
+        check(bool(found.any()), "no inserted vector found itself")
+        check(bool((ids_s[found, 0] == own[found, 0]).all()
+                   and not d_s[found, 0].any()),
+              "an inserted vector found itself but not first at distance 0")
+        check(not bool(tomb[ids_s[ids_s < args.n]].any()),
+              "a tombstoned id was returned")
+        print(f"  after: batch {ms_t:.3f} ms, recall@10 "
+              f"{recall(ids_t, oracle(qb)):.4f} (the oracle ignores the "
+              f"tombstones and inserts); {int(found.sum())} of "
+              f"{SELF_QUERIES} inserted vectors found themselves, each "
+              f"first at distance 0")
+        count_off_path()
 
     out = []
     for name, (src, replaces) in KERNELS.items():

@@ -1,5 +1,6 @@
 """Batched Starling search on the card (PyTorch port of
-``repro.core.device_search``: ``from_segment`` and ``device_anns``).
+``repro.core.device_search``: ``from_segment``, ``device_anns``,
+``device_range_search`` and the online tier-0 ``repack_tier0``).
 
 One loop over rounds for a whole query batch. Each round every live
 query picks its F best open candidates; the round stage
@@ -94,6 +95,21 @@ class DeviceSearchResult(NamedTuple):
     round_log: Optional[torch.Tensor] = None   # [max_hops, 8] i32
 
 
+class DeviceRangeResult(NamedTuple):
+    """Per-query outputs of ``device_range_search`` (counters summed
+    over all its rounds)."""
+    ids: torch.Tensor           # [Q, k_cap]
+    dists: torch.Tensor         # [Q, k_cap]
+    in_range: torch.Tensor      # [Q, k_cap] bool
+    io: torch.Tensor            # [Q] cold block touches
+    tier0_hits: torch.Tensor    # [Q]
+    dedup_saved: torch.Tensor   # [Q]
+    dedup_cross: torch.Tensor   # [Q]
+    spec_hits: torch.Tensor     # [Q]
+    spec_wasted: torch.Tensor   # [Q]
+    rounds: int                 # loop rounds of all range rounds
+
+
 def _tier0_pack(seg, num_blocks: int, observed=None, plan=None):
     """Select and pack the tier-0 hot set (host side, build time)
     through ``hotset.plan_tier0``, exactly as the JAX ``_tier0_pack``."""
@@ -162,6 +178,30 @@ def from_segment(seg, tier0_blocks: Optional[int] = None,
 def hot_pack_blocks(ds: DeviceSegment) -> set:
     """The block ids in the tier-0 pack (empty when tier 0 is off)."""
     return set(np.flatnonzero(ds.hot_slot_of.cpu().numpy() >= 0).tolist())
+
+
+def repack_tier0(ds: DeviceSegment, seg, observed, plan=None):
+    """Rebuild only the tier-0 pack of ``ds`` at its current budget,
+    re-ranked by ``observed`` per-block demand counts (or the given
+    ``plan``), from the host ``Segment`` it was packed from. Every other
+    array is reused. Returns ``(new_ds, changed)``, ``changed`` the
+    number of packed blocks that were not packed before. The pack holds
+    exact copies either way, so results are the same before and after;
+    only the io / tier0_hits split moves."""
+    old = hot_pack_blocks(ds)
+    hot_vecs, hot_vid, hot_nbrs, slot_of = _tier0_pack(
+        seg, len(old), observed=observed, plan=plan)
+    new = set(np.flatnonzero(slot_of >= 0).tolist())
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=ds.device)
+
+    out = dataclasses.replace(
+        ds, hot_vecs=put(hot_vecs).to(ds.hot_vecs.dtype),
+        hot_vid=put(hot_vid).to(torch.int32),
+        hot_nbrs=put(hot_nbrs).to(torch.int32),
+        hot_slot_of=put(slot_of).to(torch.int32))
+    return out, len(new - old)
 
 
 def tier0_bytes(ds: DeviceSegment) -> int:
@@ -594,3 +634,93 @@ def device_anns(ds: DeviceSegment, queries: torch.Tensor,
     return DeviceSearchResult(st["res_id"][:, : p.k], st["res_key"][:, : p.k],
                               st["io"], st["hops"], st["t0"], st["saved"],
                               st["saved_x"], spec_h, spec_w, st["t"], rlog)
+
+
+# ---------------------------------------------------------- range search
+
+def device_range_search(ds: DeviceSegment, queries: torch.Tensor,
+                        radius: float, k_cap: int = 256,
+                        p: DeviceSearchParams = DEFAULT_DEVICE_SEARCH,
+                        metric: str = "l2",
+                        rounds: int = 3) -> DeviceRangeResult:
+    """Batched range search (§5.3, the device formulation): ANNS rounds
+    with a candidate set Γ that doubles while ``2Γ <= k_cap``, at most
+    ``rounds`` of them. (The JAX signature's ``ratio``, which it leaves
+    to the serving layer and never reads, is not ported.)
+
+    The ``visited`` bitmask, the results and the counters thread through
+    the rounds: a later round re-seeds its candidates from the previous
+    round's results but never re-expands a vertex an earlier round
+    expanded, so never re-fetches or re-counts its block. With
+    ``p.speculate`` the staged prediction drains at each re-entry while
+    the hit and waste counters add up. ``in_range`` is ``dists <=
+    radius``."""
+    qn = queries.shape[0]
+    dev = ds.device
+    if queries.device != dev:
+        raise ValueError(f"queries on {queries.device}, segment on {dev}")
+    eps = ds.vid.shape[1]
+    nb_words = -(-ds.block_of.shape[0] // 32)
+    fw = max(p.fetch_width, 1)
+    queries = queries.to(torch.float32).contiguous()
+    lut = _adc_lut(queries, ds.pq_cent, metric)
+    entry = nav_entry_points(ds, queries, beam=p.nav_beam, hops=p.nav_hops,
+                             num=p.entry_points, metric=metric)
+    e_key = _adc(lut, ds.pq_codes[entry.long().clamp_min(0)]).masked_fill(
+        entry < 0, _INF)
+
+    def zeros():
+        return torch.zeros(qn, dtype=torch.int32, device=dev)
+
+    visited = torch.zeros((qn, nb_words), dtype=torch.int32, device=dev)
+    res_id = torch.zeros((qn, 0), dtype=torch.int32, device=dev)
+    res_key = torch.zeros((qn, 0), dtype=torch.float32, device=dev)
+    io, t0, hops, saved, saved_x = zeros(), zeros(), zeros(), zeros(), zeros()
+    spec_h, spec_w = zeros(), zeros()
+    total_rounds = 0
+    seed_id, seed_key = entry, e_key
+    c = p.candidates
+    for _ in range(rounds):
+        res_size = min(k_cap, c) + 2 * eps * fw
+        cand_key, cand_id = _merge_top(
+            torch.full((qn, c), _INF, device=dev),
+            torch.full((qn, c), -1, dtype=torch.int32, device=dev),
+            seed_key, seed_id, c)
+        r_id = torch.full((qn, res_size), -1, dtype=torch.int32, device=dev)
+        r_key = torch.full((qn, res_size), _INF, device=dev)
+        if res_id.shape[1]:
+            r_key, r_id = _merge_top(r_key, r_id, res_key, res_id, res_size)
+        state = {"cand_id": cand_id, "cand_key": cand_key,
+                 "open_key": _open_keys(cand_id, cand_key, visited),
+                 "visited": visited, "res_id": r_id, "res_key": r_key,
+                 "io": io, "t0": t0, "hops": hops, "saved": saved,
+                 "saved_x": saved_x, "t": 0}
+        # the round log stays off: the loop re-enters each round
+        st, _ = _block_search_loop(
+            ds, queries, lut, state, res_size=res_size, candidates=c,
+            sigma=p.sigma, max_hops=p.max_hops, metric=metric,
+            fetch_width=fw, fetch_impl=p.fetch_impl,
+            compact_frac=p.compact_frac, trace=False,
+            pipeline_dma=p.pipeline_dma, round_tile_cap=p.round_tile_cap,
+            speculate=p.speculate, fuse_union=p.fuse_union)
+        visited, res_id, res_key = st["visited"], st["res_id"], st["res_key"]
+        io, t0, hops = st["io"], st["t0"], st["hops"]
+        saved, saved_x = st["saved"], st["saved_x"]
+        if p.speculate:
+            spec_h = spec_h + st["spec_h"]
+            spec_w = spec_w + st["spec_w"]
+        total_rounds += st["t"]
+        if c * 2 > k_cap:
+            break
+        c *= 2
+        # the next round resumes from this round's frontier: results that
+        # were ranked but never expanded are open under ``visited``
+        seed_id, seed_key = res_id, res_key
+
+    ids, dists = res_id[:, :k_cap], res_key[:, :k_cap]
+    pad = k_cap - ids.shape[1]
+    if pad > 0:
+        ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+        dists = torch.nn.functional.pad(dists, (0, pad), value=_INF)
+    return DeviceRangeResult(ids, dists, dists <= radius, io, t0, saved,
+                             saved_x, spec_h, spec_w, total_rounds)

@@ -195,6 +195,7 @@ class Visited(NamedTuple):
 def greedy_search_batch(x: torch.Tensor, adj: torch.Tensor, deg,
                         entry: int, queries: torch.Tensor, beam: int,
                         metric: str = "l2", max_hops: int = 512,
+                        visited: bool = True,
                         ) -> Tuple[torch.Tensor, torch.Tensor, Visited]:
     """Batched best-first (beam) search on the current graph, on the
     device of ``x`` (``adj`` [N, Λ] there too; ``deg`` is unused, as in
@@ -204,7 +205,11 @@ def greedy_search_batch(x: torch.Tensor, adj: torch.Tensor, deg,
     expands, for every query that has one, its first unexpanded
     candidate; new neighbours (not yet visited) are merged into the
     candidate list by a stable sort on distance, after the current
-    candidates and in neighbour order, as in the JAX merge."""
+    candidates and in neighbour order, as in the JAX merge. With
+    ``visited=False`` only ``Visited.count`` is kept (ids and dists are
+    None): the callers that read no visited list (the hot tier, the
+    navigation graph's entries) skip its bookkeeping and its host syncs;
+    the search is the same."""
     dev = x.device
     bsz = queries.shape[0]
     n, lam = adj.shape
@@ -214,13 +219,15 @@ def greedy_search_batch(x: torch.Tensor, adj: torch.Tensor, deg,
     d0 = D.pairwise(queries, x[entry][None, :], metric, device=dev)[:, 0]
     cand_ids[:, 0] = entry
     cand_d[:, 0] = d0
-    seen = torch.zeros((bsz, n), dtype=torch.bool, device=dev)
+    seen = torch.zeros((bsz, n + 1), dtype=torch.bool, device=dev)
     seen[:, entry] = True
-    cap = 1 + 16 * lam
+    seen[:, n] = True                      # the column of the empty slots
+    cap = 1 + 16 * lam if visited else 0
     vis_ids = torch.full((bsz, cap), -1, dtype=torch.long, device=dev)
     vis_d = torch.full((bsz, cap), _INF, dtype=torch.float32, device=dev)
-    vis_ids[:, 0] = entry
-    vis_d[:, 0] = d0
+    if visited:
+        vis_ids[:, 0] = entry
+        vis_d[:, 0] = d0
     vis_n = torch.ones(bsz, dtype=torch.long, device=dev)
     cols = torch.arange(beam, device=dev)
 
@@ -230,7 +237,7 @@ def greedy_search_batch(x: torch.Tensor, adj: torch.Tensor, deg,
         rows = torch.nonzero(has_open).squeeze(1)
         if rows.numel() == 0:
             break
-        if 1 + (hop + 1) * lam > cap:                   # room for this hop
+        if visited and 1 + (hop + 1) * lam > cap:       # room for this hop
             grow = cap
             vis_ids = torch.cat([vis_ids, torch.full_like(vis_ids[:, :grow],
                                                           -1)], 1)
@@ -245,12 +252,14 @@ def greedy_search_batch(x: torch.Tensor, adj: torch.Tensor, deg,
         nb = nbr.clamp_min(0)
         qr = queries[rows]
         dists = D.point_to_points(qr, x[nb], metric)       # [R, Λ]
-        new = valid & ~seen[rows[:, None], nb]
         rr = rows[:, None].expand_as(nb)
-        seen[rr[new], nb[new]] = True
-        pos = vis_n[rows][:, None] + torch.cumsum(new, 1) - 1
-        vis_ids[rr[new], pos[new]] = nb[new]
-        vis_d[rr[new], pos[new]] = dists[new]
+        col = torch.where(valid, nbr, n)
+        new = ~seen[rr, col]
+        seen[rr, col] = True
+        if visited:
+            pos = vis_n[rows][:, None] + torch.cumsum(new, 1) - 1
+            vis_ids[rr[new], pos[new]] = nb[new]
+            vis_d[rr[new], pos[new]] = dists[new]
         vis_n[rows] += new.sum(1)
         m_ids = torch.cat([cand_ids[rows], torch.where(new, nb, -1)], 1)
         m_d = torch.cat([cand_d[rows], torch.where(
@@ -260,6 +269,8 @@ def greedy_search_batch(x: torch.Tensor, adj: torch.Tensor, deg,
         cand_ids[rows] = torch.gather(m_ids, 1, o)
         cand_d[rows] = torch.gather(m_d, 1, o)
         expanded[rows] = torch.gather(m_e, 1, o)
+    if not visited:
+        return cand_ids, cand_d, Visited(None, None, vis_n)
     return cand_ids, cand_d, Visited(vis_ids, vis_d, vis_n)
 
 

@@ -2,12 +2,14 @@
 
 Sample μ·N vertices, build a graph index over the sample, and answer
 "give me entry points near q" without any disk I/O. Returned ids are in
-the full dataset's id space. ``subset_navgraph`` (the hot tier's) and
-``from_hnsw_layers`` are not ported yet.
+the full dataset's id space. ``subset_navgraph`` builds the same kind
+of graph over an explicit subset (the hot tier's). ``from_hnsw_layers``
+is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,7 +39,7 @@ class NavGraph:
             D.as_tensor(self.vectors, dev),
             torch.as_tensor(self.graph.adj, device=dev), self.graph.deg,
             self.graph.entry, D.as_tensor(queries, dev),
-            beam=max(beam, num), metric=self.graph.metric)
+            beam=max(beam, num), metric=self.graph.metric, visited=False)
         picked = ids[:, :num].clamp_min(0).cpu().numpy()
         return self.sample_ids[picked]
 
@@ -56,3 +58,23 @@ def build_navgraph(x: np.ndarray, p: NavGraphParams, metric: str = "l2",
                      algo=algo, seed=p.seed)
     g = G.build_graph(sub, gp, metric, device=device)
     return NavGraph(graph=g, sample_ids=ids, vectors=sub)
+
+
+def subset_navgraph(x: Optional[np.ndarray], ids: np.ndarray,
+                    max_degree: int, build_beam: int, metric: str = "l2",
+                    algo: str = "nsg", seed: int = 1,
+                    vectors: Optional[np.ndarray] = None,
+                    device="cuda") -> NavGraph:
+    """A ``NavGraph`` over an explicit vertex subset: the caller picks
+    the resident global ``ids`` (the hot tier passes its hot-set
+    members) instead of a μ-sample. ``vectors`` [len(ids), D] are the
+    already-gathered rows when there is no flat ``x``."""
+    ids = np.asarray(ids, np.int64)
+    sub = (np.ascontiguousarray(vectors, dtype=np.float32)
+           if vectors is not None
+           else np.ascontiguousarray(x[ids], dtype=np.float32))
+    gp = GraphParams(max_degree=max_degree,
+                     build_beam=max(build_beam, max_degree),
+                     algo=algo, seed=seed)
+    g = G.build_graph(sub, gp, metric, device=device)
+    return NavGraph(graph=g, sample_ids=ids.astype(np.int32), vectors=sub)

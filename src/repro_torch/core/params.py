@@ -4,7 +4,8 @@ fields ``device_search.from_segment`` reads.
 Copies of ``repro.core.params`` / ``repro.configs.starling_segment``
 with the same field names, so one set of values drives both packages.
 Only the fields this package reads are kept (the build's graph, layout,
-navigation-graph and budget knobs, the device search's). ``fetch_impl`` takes
+navigation-graph and budget knobs, the device search's, the hot
+tier's). ``fetch_impl`` takes
 ``"fused"`` (the CUDA round kernels) or ``"ref"`` (the plain PyTorch
 round stage, the counterpart of the JAX ``"jnp"``).
 """
@@ -66,6 +67,36 @@ class NavGraphParams:
     search_beam: int = 16         # beam when finding entry points
     num_entry_points: int = 4     # entry points handed to the disk search
     seed: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class HotTierParams:
+    """The in-memory hot tier above the block hierarchy (``io.hottier``):
+    a navigable graph over the hot-set vectors that answers first; the
+    cold block search is seeded from its exit frontier. Also the home
+    of a segment's inserts until a compaction."""
+    budget_frac: float = 0.10     # share of segment vectors resident hot
+    max_degree: int = 16          # hot-graph degree
+    build_beam: int = 48
+    search_beam: int = 16         # beam for the hot route (to convergence)
+    exit_width: int = 4           # exit-frontier seeds handed to cold search
+    cold_gamma_frac: float = 0.85  # the hybrid's cold Γ as a share of the
+    #                                configured candidate size
+    append_slack: float = 0.5     # append-region capacity / built size
+    hops: int = 1                 # BFS depth of the hot-set ranking
+    seed: int = 1
+
+    def __post_init__(self):
+        if not 0.0 < self.budget_frac <= 1.0:
+            raise ValueError("budget_frac must be in (0, 1]")
+        if not 0.0 < self.cold_gamma_frac <= 1.0:
+            raise ValueError("cold_gamma_frac must be in (0, 1]")
+        if self.exit_width < 1:
+            raise ValueError("exit_width must be >= 1")
+        if self.append_slack < 0.0:
+            raise ValueError("append_slack must be >= 0")
+        if self.search_beam < self.exit_width:
+            raise ValueError("search_beam must cover exit_width")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,8 +8,7 @@ on the μ-sample (NSG), PQ — and returns a ``Segment`` ready for
 packages: ``save_segment`` writes every key ``repro.core.segment.
 load_segment`` reads, and ``load_segment`` reads the ``.npz`` that
 ``repro.core.segment.save_segment`` writes (``segment_from_arrays``
-takes the same keys as a dict, which is also what ``data.synthetic.
-synthetic_segment`` returns).
+takes the same keys as a dict).
 
 Arrays (ρ blocks of ε slots, N vertices, Λ max degree):
   vid [ρ, ε] i32 (-1 pad), vecs [ρ, ε, D] f32, meta [ρ, ε, 1+Λ] i32
@@ -84,6 +83,15 @@ class Segment:
     def graph(self) -> G.Graph:
         return G.Graph(adj=self.adj, deg=self.deg, entry=self.entry,
                        metric=self.metric)
+
+    @property
+    def nav(self) -> NG.NavGraph:
+        """The navigation graph over the μ-sample (local adjacency,
+        global ``sample_ids``)."""
+        return NG.NavGraph(
+            graph=G.Graph(adj=self.nav_adj, deg=self.nav_deg,
+                          entry=self.nav_entry, metric=self.metric),
+            sample_ids=self.nav_ids, vectors=self.nav_vecs)
 
     @property
     def layout(self) -> L.BlockLayout:

@@ -31,6 +31,7 @@ SIGNATURES = {
         "t0_gather": [P, I, P, P, P, I, I, I, I, P, P, P, P],
         "t0_rank": [P, P, P, P, I, P, I, P, P, P, I, P, P, P, I, I, I, I,
                     I, I, I, I, P, P, P, P, P, P],
+        "t0_fetch_rank": [P, P, I, I, P, I, P, I, P, I, I, I, P, P, P],
     },
     "l2_tile": {
         "l2_tile_f32": [P, P, I, I, I, I, P, P],
@@ -38,6 +39,9 @@ SIGNATURES = {
     },
     "pq_adc": {
         "pq_adc": [P, P, I, I, I, I, I, P, P],
+    },
+    "block_topk": {
+        "block_topk": [P, P, I, I, I, I, I, P, P, P],
     },
 }
 

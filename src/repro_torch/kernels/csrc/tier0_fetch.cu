@@ -8,6 +8,7 @@
 //   t0_gather             <-  gather_unique (_gather_unique_kernel,
 //                             _gather_unique_dma_kernel)
 //   t0_rank               <-  fused_round pass 2b (_rank_kernel)
+//   t0_fetch_rank         <-  tier0_fetch_rank (_probe_kernel)
 //
 // What bounds them on an H100 is bytes, not arithmetic: a round moves a
 // few MB of block payload (ε·D floats, ε ids, ε·Λ neighbour ids per block)
@@ -34,6 +35,12 @@
 //    per slot with coalesced loads, and ranks the selection key by
 //    counting (stable: index breaks ties), which is exactly
 //    argsort(stable)[:n_expand].
+//  * Probe (tier0_fetch_rank). The rank pass's probe and distance without
+//    its broadcast and order: one CTA per (query, block) pair probes the
+//    tier-0 map, reads the hot-pack tile or the block's cold tile once,
+//    and writes its ε distances and the hit bit. Its traffic is the
+//    tiles of the named blocks, some 3 KB a pair; the launch dominates
+//    at the sizes a round gives it.
 //
 // Every index read from an input is clamped into range, as the JAX
 // gathers clamp. Each entry point launches on the given stream and
@@ -159,6 +166,31 @@ __global__ void gather_kernel(const int* __restrict__ uniq, int rho,
   copy_words(tn + row * vl, nbrs + blk * vl, static_cast<int>(vl));
 }
 
+// --------------------------------------------------------------- distance
+
+// sum((t - q)^2), or -sum(q * t) for ip, of one d-float row, summed by
+// one warp: lane c takes columns c, c+32, ..., the partial sums meet by
+// xor shuffles, so every lane returns the total. The rank and the probe
+// kernels share it, so both give the same f32 sums.
+template <bool IP>
+__device__ __forceinline__ float warp_dist(const float* __restrict__ t,
+                                           const float* __restrict__ q,
+                                           int d, int lane) {
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    float x = t[c], y = q[c];
+    if (IP) {
+      acc = fmaf(x, y, acc);
+    } else {
+      float df = x - y;
+      acc = fmaf(df, df, acc);
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return IP ? -acc : acc;
+}
+
 // ------------------------------------------------------------------- rank
 
 template <bool IP>
@@ -230,20 +262,8 @@ __global__ void rank_kernel(
     int j = s / eps, e = s - j * eps, hs = hslot[j];
     const float* t = hs >= 0 ? hot_vecs + (static_cast<long>(hs) * eps + e) * d
                              : tv + (static_cast<long>(urow[j]) * eps + e) * d;
-    float acc = 0.f;
-    for (int c = lane; c < d; c += 32) {
-      float x = t[c], y = qrow[c];
-      if (IP) {
-        acc = fmaf(x, y, acc);
-      } else {
-        float df = x - y;
-        acc = fmaf(df, df, acc);
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    float dist = warp_dist<IP>(t, qrow, d, lane);
     if (lane == 0) {
-      float dist = IP ? -acc : acc;
       dd_out[qi * fe + s] = dist;
       key[s] = dist;
     }
@@ -270,6 +290,35 @@ __global__ void rank_kernel(
       pos += (kt < ks) || (kt == ks && t < s);
     }
     if (pos < n_expand) ord_out[qi * n_expand + pos] = s;
+  }
+}
+
+// ------------------------------------------------------------------ probe
+
+// One CTA per (query, block) pair; its warps take the block's slots in
+// turn. dd [Q, F*eps] row-major is pair * eps + slot.
+template <bool IP>
+__global__ void probe_kernel(const float* __restrict__ q,
+                             const int* __restrict__ blocks, int f,
+                             const int* __restrict__ hot_slot_of, int rho,
+                             const float* __restrict__ hot_vecs, int h,
+                             const float* __restrict__ cold_vecs, int eps,
+                             int d, float* __restrict__ dd_out,
+                             int* __restrict__ hit_out) {
+  const long pair = blockIdx.x;
+  const long qi = pair / f;
+  const int blk = clampi(blocks[pair], 0, rho - 1);
+  const int hs = hot_slot_of[blk];
+  const long vd = static_cast<long>(eps) * d;
+  const float* tile = hs >= 0 ? hot_vecs + min(hs, h - 1) * vd
+                              : cold_vecs + blk * vd;
+  if (threadIdx.x == 0) hit_out[pair] = hs >= 0 ? 1 : 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int e = warp; e < eps; e += nwarps) {
+    float dist = warp_dist<IP>(tile + static_cast<long>(e) * d, q + qi * d,
+                               d, lane);
+    if (lane == 0) dd_out[pair * eps + e] = dist;
   }
 }
 
@@ -322,6 +371,26 @@ int t0_rank(const float* q, const int* u, const int* rank2d,
         q, u, rank2d, uniq, r, hot_slot_of, rho, hot_vecs, hot_vid, hot_nbrs,
         h, tv, ti, tn, f, eps, d, lam, n_expand, bq, dd, vid, nbrs, hit,
         order);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tier0_fetch_rank: queries [qn, d] x blocks [qn, f] -> dd [qn, f*eps]
+// f32, hit [qn, f] i32.
+int t0_fetch_rank(const float* q, const int* blocks, int qn, int f,
+                  const int* hot_slot_of, int rho, const float* hot_vecs,
+                  int h, const float* cold_vecs, int eps, int d, int ip,
+                  float* dd, int* hit, void* stream) {
+  if (qn <= 0 || f <= 0) return 0;
+  const int pairs = qn * f;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ip)
+    probe_kernel<true><<<pairs, 128, 0, st>>>(
+        q, blocks, f, hot_slot_of, rho, hot_vecs, h, cold_vecs, eps, d, dd,
+        hit);
+  else
+    probe_kernel<false><<<pairs, 128, 0, st>>>(
+        q, blocks, f, hot_slot_of, rho, hot_vecs, h, cold_vecs, eps, d, dd,
+        hit);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,13 +1,15 @@
 """Dispatch wrappers around the kernels (the port's ``repro.kernels.
-ops``): ``pairwise_l2`` and ``pq_adc_batch`` at any shape (the CUDA
-kernels take any Q, N by bounds checks, so nothing is padded), and the
-round stage, padded to the rank pass's query tile with the padding
-stripped from the outputs (``round_tile`` / ``fused_round``)."""
+ops``): ``pairwise_l2``, ``pq_adc_batch``, ``tier0_rank`` and
+``block_rank`` at any shape (the CUDA kernels take any Q, N by bounds
+checks, so nothing is padded), and the round stage, padded to the rank
+pass's query tile with the padding stripped from the outputs
+(``round_tile`` / ``fused_round``)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import block_topk as _bt
 from repro_torch.kernels import l2_tile as _l2
 from repro_torch.kernels import pq_adc as _adc
 from repro_torch.kernels import tier0_fetch as _t0
@@ -23,6 +25,28 @@ def pq_adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """codes [N, M] u8 x luts [B, M, K] -> [B, N] ADC distances."""
     return _adc.pq_adc(codes.contiguous(),
                        luts.to(torch.float32).contiguous())
+
+
+def block_rank(queries: torch.Tensor, tiles: torch.Tensor, top_m: int,
+               metric: str = "l2"):
+    """queries [Q, D] x gathered tiles [Q, eps, D] -> (dists [Q, eps],
+    top_idx [Q, top_m]) via the block_topk kernel (norm-expansion
+    distances; slots past eps hold 0)."""
+    return _bt.block_topk(queries.to(torch.float32).contiguous(),
+                          tiles.to(torch.float32).contiguous(), top_m,
+                          metric=metric)
+
+
+def tier0_rank(queries: torch.Tensor, blocks: torch.Tensor,
+               hot_slot_of: torch.Tensor, hot_vecs: torch.Tensor,
+               cold_vecs: torch.Tensor, metric: str = "l2"):
+    """Tier-0 probe + gather + rank: queries [Q, D] x target blocks
+    [Q, F] -> (dists [Q, F*eps], hit [Q, F] i32) via the
+    tier0_fetch_rank kernel."""
+    return _t0.tier0_fetch_rank(
+        queries.to(torch.float32).contiguous(), blocks.contiguous(),
+        hot_slot_of.contiguous(), hot_vecs.contiguous(),
+        cold_vecs.contiguous(), metric=metric)
 
 
 def round_tile(qn: int, cap: int = 0) -> int:

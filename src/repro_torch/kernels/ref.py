@@ -7,8 +7,13 @@ plain versions of the CUDA kernels in ``kernels.tier0_fetch``;
 ``pairwise_l2_ref`` and ``pq_adc_ref`` those of ``kernels.l2_tile`` and
 ``kernels.pq_adc``. The wrappers run them for CPU tensors, and
 ``chip_smoke.py`` holds each kernel against its plain version on the
-card. Every index that the JAX package clamps is
-clamped here too (JAX clamps out-of-range gathers; torch would raise).
+card. ``tier0_fetch_rank_ref`` is the plain version of ``kernels.
+tier0_fetch.tier0_fetch_rank``; ``block_topk_ref`` that of ``kernels.
+block_topk`` (the kernel's own norm-expansion form), and
+``block_rank_ref`` the twin of the JAX oracle ``repro.kernels.ref.
+block_rank_ref`` (the explicit difference). Every index that the JAX
+package clamps is clamped here too (JAX clamps out-of-range gathers;
+torch would raise).
 """
 from __future__ import annotations
 
@@ -139,3 +144,50 @@ def fused_round_ref(queries, u, block_of, hot_slot_of, hot_vecs, hot_vid,
     dd = sq_dists(queries, tiles.reshape(qn, f * eps, -1), metric)
     _, order = selection_order(dd, vid_g, u, n_expand)
     return dd, vid_g, nbrs_g, hit.to(torch.int32), order
+
+
+def tier0_fetch_rank_ref(queries, blocks, hot_slot_of, hot_vecs, cold_vecs,
+                         metric: str = "l2"):
+    """The tier-0 probe, the hot or cold tile and exact distances:
+    queries [Q, D]; blocks [Q, F]; hot_slot_of [rho] (-1 = cold);
+    hot_vecs [H, eps, D]; cold_vecs [rho, eps, D] ->
+    (dists [Q, F*eps] f32, hit [Q, F] i32)."""
+    b = blocks.long().clamp(0, cold_vecs.shape[0] - 1)
+    slot = hot_slot_of[b]
+    hit = slot >= 0
+    tiles = torch.where(hit[:, :, None, None],
+                        hot_vecs[slot.long().clamp(0, hot_vecs.shape[0] - 1)],
+                        cold_vecs[b])
+    qn, f, eps, d = tiles.shape
+    return (sq_dists(queries, tiles.reshape(qn, f * eps, d), metric),
+            hit.to(torch.int32))
+
+
+def block_rank_ref(queries, tiles, top_m: int, metric: str = "l2"):
+    """Twin of the JAX oracle: queries [Q, D]; tiles [Q, eps, D] ->
+    (dists [Q, eps] by the explicit difference, top_idx [Q, min(top_m,
+    eps)] i32, the stable ascending order)."""
+    d = sq_dists(queries, tiles, metric)
+    idx = torch.argsort(d, dim=1, stable=True)[:, :top_m]
+    return d, idx.to(torch.int32)
+
+
+def block_topk_ref(queries, tiles, top_m: int, metric: str = "l2"):
+    """Plain version of the ``block_topk`` kernel: queries [Q, D]; tiles
+    [Q, eps, D] -> (dists [Q, eps] f32 by the norm expansion
+    ``max(|t|^2 + |q|^2 - 2 q.t, 0)`` or ``-q.t``, top_idx [Q, top_m]
+    i32). The stable ascending order is the kernel's masked argmin for
+    every distance below its 3e38 mask; slots past eps are 0."""
+    q32, t32 = queries.to(torch.float32), tiles.to(torch.float32)
+    dot = torch.einsum("qd,qed->qe", q32, t32)
+    if metric == "ip":
+        d = -dot
+    else:
+        tt = torch.sum(t32 * t32, dim=-1)
+        qq = torch.sum(q32 * q32, dim=-1, keepdim=True)
+        d = torch.clamp_min(tt + qq - 2.0 * dot, 0.0)
+    idx = torch.argsort(d, dim=1, stable=True)[:, :top_m].to(torch.int32)
+    pad = top_m - idx.shape[1]
+    if pad > 0:
+        idx = torch.nn.functional.pad(idx, (0, pad))
+    return d, idx

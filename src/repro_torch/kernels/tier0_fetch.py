@@ -17,7 +17,15 @@ One search round, for the F candidates each query picked:
     query tile writes sentinels. Replaces ``fused_round``'s
     ``_rank_kernel``.
 
-``fused_round`` chains them as the JAX ``fused_round`` does. Every
+``fused_round`` chains them as the JAX ``fused_round`` does.
+
+  * ``tier0_fetch_rank`` — the probe and the distances alone, one CTA
+    per (query, block): the fetch stage of the kernel API
+    (``ops.tier0_rank``), off the served path. Replaces
+    ``tier0_fetch_rank`` (``_probe_kernel``) and shares the rank pass's
+    distance function.
+
+Every
 wrapper runs its plain version (``kernels.ref``) when its tensors lie on
 the CPU; for CUDA tensors it launches its kernel, or raises. Each
 launch adds one to ``LAUNCHES[<wrapper name>]``; nothing else does.
@@ -33,7 +41,8 @@ from repro_torch.kernels import _build, dedup, ref
 BQ = 128          # query-tile size of the rank pass
 MAX_UNION = 4096  # largest batch union (Q*F) the one-CTA union kernel sorts
 
-LAUNCHES = {"gather_union": 0, "fused_round_rank": 0, "gather_unique": 0}
+LAUNCHES = {"gather_union": 0, "fused_round_rank": 0, "gather_unique": 0,
+            "tier0_fetch_rank": 0}
 
 
 def reset_launches() -> None:
@@ -170,3 +179,48 @@ def fused_round(queries, u, block_of, hot_slot_of, hot_vecs, hot_vid,
     return fused_round_rank(queries, u, rank2d, uniq, hot_slot_of,
                             hot_vecs, hot_vid, hot_nbrs, tv, ti, tn,
                             n_expand, metric=metric, bq=bq)
+
+
+def tier0_fetch_rank(queries: torch.Tensor, blocks: torch.Tensor,
+                     hot_slot_of: torch.Tensor, hot_vecs: torch.Tensor,
+                     cold_vecs: torch.Tensor, metric: str = "l2"):
+    """queries [Q, D] f32; blocks [Q, F] i32; hot_slot_of [rho] i32 (-1 =
+    not packed); hot_vecs [H, eps, D] f32; cold_vecs [rho, eps, D] f32 ->
+    (dists [Q, F*eps] f32, hit [Q, F] i32): each named block's tile from
+    the hot pack where it is packed, else from the cold store, ranked
+    exactly (sum of squared differences, or -q.t for ``ip``). Any Q;
+    block ids and hot slots are clamped into range, as JAX gathers
+    clamp."""
+    if metric not in ("l2", "ip"):
+        raise ValueError(f"unknown metric {metric!r} (l2 | ip)")
+    if (queries.dim() != 2 or blocks.dim() != 2 or cold_vecs.dim() != 3
+            or hot_vecs.shape[1:] != cold_vecs.shape[1:]
+            or blocks.shape[0] != queries.shape[0]
+            or cold_vecs.shape[2] != queries.shape[1]
+            or hot_slot_of.shape != cold_vecs.shape[:1]
+            or min(hot_vecs.shape[0], cold_vecs.shape[0]) < 1):
+        raise ValueError(
+            f"tier0_fetch_rank: shapes {tuple(queries.shape)}, "
+            f"{tuple(blocks.shape)}, {tuple(hot_slot_of.shape)}, "
+            f"{tuple(hot_vecs.shape)}, {tuple(cold_vecs.shape)} do not pair")
+    if queries.device.type == "cpu":
+        return ref.tier0_fetch_rank_ref(queries, blocks, hot_slot_of,
+                                        hot_vecs, cold_vecs, metric)
+    _build.require("tier0_fetch_rank", queries=(queries, torch.float32),
+                   blocks=(blocks, torch.int32),
+                   hot_slot_of=(hot_slot_of, torch.int32),
+                   hot_vecs=(hot_vecs, torch.float32),
+                   cold_vecs=(cold_vecs, torch.float32))
+    qn, f = blocks.shape
+    rho, eps, d = cold_vecs.shape
+    dev = queries.device
+    dd = torch.empty((qn, f * eps), dtype=torch.float32, device=dev)
+    hit = torch.empty((qn, f), dtype=torch.int32, device=dev)
+    lib = _build.load("tier0_fetch")
+    _build.check(lib.t0_fetch_rank(
+        _ptr(queries), _ptr(blocks), qn, f, _ptr(hot_slot_of), rho,
+        _ptr(hot_vecs), hot_vecs.shape[0], _ptr(cold_vecs), eps, d,
+        1 if metric == "ip" else 0, _ptr(dd), _ptr(hit), _build.stream()),
+        "t0_fetch_rank")
+    LAUNCHES["tier0_fetch_rank"] += 1
+    return dd, hit

@@ -1,8 +1,7 @@
 """Segment serving on the card (port of ``SegmentServer`` and
-``merge_topk`` from ``repro.serving.coordinator``).
-
-The hybrid hot tier, tombstones and the online tier-0 repack are not
-ported yet: a server given any of them raises ``NotImplementedError``.
+``merge_topk`` from ``repro.serving.coordinator``): the batched device
+search, the hybrid hot tier with tombstones, and the online tier-0
+repack.
 """
 from __future__ import annotations
 
@@ -12,8 +11,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.device_search import DeviceSegment, device_anns
+from repro_torch.core.device_search import (DeviceSegment, device_anns,
+                                            repack_tier0)
 from repro_torch.core.params import SERVE_DEVICE_SEARCH, DeviceSearchParams
+from repro_torch.io.hottier import merge_hot_cold
 
 
 def merge_topk(ids: Sequence[np.ndarray], dists: Sequence[np.ndarray],
@@ -36,7 +37,17 @@ def merge_topk(ids: Sequence[np.ndarray], dists: Sequence[np.ndarray],
 class SegmentServer:
     """One segment's device arrays + search knobs, served on ``device``
     (the segment is moved there if it lies elsewhere). A per-request
-    ``k`` replaces just that field of ``params``."""
+    ``k`` replaces just that field of ``params``.
+
+    ``host`` (optional) is the host ``Segment`` the arrays were packed
+    from: ``repack`` needs it, and a hybrid server takes the navigation
+    graph's entries from it. ``hot_tier`` (optional, an ``io.hottier.
+    HotTier``) makes the server hybrid: queries route hot-first, the
+    device search is seeded from the exit frontier plus the navigation
+    entries at a narrowed cold Γ, and the answers merge by ``(dist,
+    id)`` with ``tombstones`` [num_vectors] bool masked from the cold
+    side (the hot tier masks its own); the hot tier's visits land in the
+    ``hot_tier_hits`` batch column."""
     segment: DeviceSegment
     offset: int                   # base of this segment's id space
     num_vectors: int
@@ -44,25 +55,46 @@ class SegmentServer:
     params: DeviceSearchParams = SERVE_DEVICE_SEARCH
     metric: str = "l2"
     device: str = "cuda"
-    hot_tier: Optional[object] = None
-    tombstones: Optional[np.ndarray] = None
+    host: Optional[object] = None       # the host Segment (repack source)
+    hot_tier: Optional[object] = None   # io.hottier.HotTier
+    tombstones: Optional[np.ndarray] = None  # [num_vectors] bool
 
     def __post_init__(self):
-        if self.hot_tier is not None or self.tombstones is not None:
-            raise NotImplementedError(
-                "the hybrid hot tier and tombstones are not ported yet")
         self.segment = self.segment.to(torch.device(self.device))
 
     def search(self, queries: np.ndarray, k: Optional[int] = None
                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """queries [Q, D] -> (ids [Q, k], dists [Q, k], io [Q])."""
         k = k or self.k_default
-        q = torch.as_tensor(np.ascontiguousarray(queries, np.float32),
-                            device=self.segment.device)
+        queries = np.ascontiguousarray(queries, np.float32)
+        n_dead = (int(self.tombstones.sum())
+                  if self.tombstones is not None else 0)
+        route = seeds = None
+        k_cold = k
+        candidates = max(self.params.candidates, k)
+        if self.hot_tier is not None:
+            route = self.hot_tier.route(queries, k)
+            exits = route.exits.astype(np.int32)
+            # the exits start the cold beam where memory converged, the
+            # navigation entries keep its basin diversity
+            if self.host is not None:
+                nav_seeds = self.host.nav.entry_points(
+                    queries, beam=self.params.nav_beam,
+                    num=self.params.entry_points,
+                    device=self.device).astype(np.int32)
+                exits = np.concatenate([exits, nav_seeds], axis=1)
+            seeds = torch.as_tensor(exits, device=self.segment.device)
+            # over-fetch so the cold top-k survives the tombstone mask;
+            # the hot tier took the early exploration, so Γ narrows
+            k_cold = k + min(n_dead, k)
+            candidates = max(k_cold, int(round(
+                self.params.candidates
+                * self.hot_tier.params.cold_gamma_frac)))
+        q = torch.as_tensor(queries, device=self.segment.device)
         # a per-request k above the configured beam widens Γ with it
-        p = dataclasses.replace(self.params, k=k,
-                                candidates=max(self.params.candidates, k))
-        r = device_anns(self.segment, q, p, metric=self.metric)
+        p = dataclasses.replace(self.params, k=k_cold,
+                                candidates=max(candidates, k_cold))
+        r = device_anns(self.segment, q, p, metric=self.metric, seeds=seeds)
         self.last_io = r.io.cpu().numpy()
         self.last_tier0_hits = r.tier0_hits.cpu().numpy()
         self.last_hops = r.hops.cpu().numpy()
@@ -73,12 +105,38 @@ class SegmentServer:
         self.last_rounds = int(r.rounds)
         self.last_round_log = (r.round_log.cpu().numpy()
                                if r.round_log is not None else None)
-        self.last_hot_tier_hits = np.zeros(q.shape[0], np.int64)
-        return r.ids.cpu().numpy(), r.dists.cpu().numpy(), self.last_io
+        cold_ids, cold_dists = r.ids.cpu().numpy(), r.dists.cpu().numpy()
+        if route is None:
+            self.last_hot_tier_hits = np.zeros(q.shape[0], np.int64)
+            return cold_ids, cold_dists, self.last_io
+        self.last_hot_tier_hits = route.hot_hits.astype(np.int64)
+        ci = cold_ids.astype(np.int64)
+        cd = cold_dists.astype(np.float32)
+        if self.tombstones is not None:
+            dead = (ci >= 0) & self.tombstones[np.maximum(ci, 0)]
+            ci = np.where(dead, -1, ci)
+            cd = np.where(dead, np.inf, cd)
+        out_i = np.full((q.shape[0], k), -1, np.int64)
+        out_d = np.full((q.shape[0], k), np.inf, np.float32)
+        for qi in range(q.shape[0]):
+            out_i[qi], out_d[qi] = merge_hot_cold(
+                k, route.ids[qi], route.dists[qi], ci[qi], cd[qi])
+        return out_i, out_d, self.last_io
 
     def repack(self, observed, plan=None) -> int:
-        raise NotImplementedError("the online tier-0 repack is not "
-                                  "ported yet")
+        """Swap the tier-0 pack for one re-ranked by ``observed``
+        per-block demand counts (or the given ``plan``) at the same
+        budget; results stay the same (exact copies either way). Returns
+        the number of pack slots that changed."""
+        if self.host is None:
+            raise ValueError("SegmentServer.host is unset: build the "
+                             "server with its host Segment to repack")
+        self.segment, changed = repack_tier0(self.segment, self.host,
+                                             observed, plan=plan)
+        return changed
+
+    def repack_source(self):
+        return self.host
 
     def batch_stats(self) -> Dict[str, object]:
         """Device columns of the last served batch; {} before any."""

@@ -48,11 +48,15 @@ def jds(small_segment):
 
 
 @pytest.fixture(scope="module")
-def tds(small_segment, tmp_path_factory):
+def tseg(small_segment, tmp_path_factory):
     path = tmp_path_factory.mktemp("seg") / "small.npz"
     save_segment(small_segment, str(path))
-    return TDS.from_segment(load_segment(str(path)), tier0_frac=0.1,
-                            device="cpu")
+    return load_segment(str(path))
+
+
+@pytest.fixture(scope="module")
+def tds(tseg):
+    return TDS.from_segment(tseg, tier0_frac=0.1, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -237,9 +241,8 @@ def test_segment_server_matches_jax(jds, tds, small_data):
                                           err_msg=name)
         else:
             assert tst[name] == v, name
-    with pytest.raises(NotImplementedError):
-        TServer(segment=tds, offset=0, num_vectors=x.shape[0],
-                device="cpu", tombstones=np.zeros(x.shape[0], bool))
+    with pytest.raises(ValueError):             # no host segment
+        ts.repack({})
 
 
 def test_merge_topk_matches_jax():
@@ -276,3 +279,82 @@ def test_presets_match_jax():
     for f in ("num_subspaces", "num_centroids", "train_iters",
               "train_sample", "seed"):
         assert getattr(seg.pq, f) == getattr(SEGMENT_BENCH_DEVICE.pq, f)
+
+
+# ---------------------------------------------------------- range search
+
+RANGE_COUNTERS = ("io", "tier0_hits", "dedup_saved", "dedup_cross",
+                  "spec_hits", "spec_wasted")
+
+
+def test_device_range_search_matches_jax(jds, tds, small_data):
+    """Three range rounds (Γ 48 -> 96 -> 192) with speculation on:
+    ids, ``in_range``, every counter and the loop rounds equal JAX's;
+    distances within 2.5e-4 or 1e-6 relative (a few ulps: the far
+    results reach values past 1,000)."""
+    x, q = small_data
+    radius = float(np.quantile(D.pairwise(q, x), 0.002))
+    p = dataclasses.replace(P_CONF, speculate=True)
+    want = DS.device_range_search(jds, jnp.asarray(q), radius=radius,
+                                  k_cap=192, p=p)
+    got = TDS.device_range_search(tds, torch.as_tensor(q), radius,
+                                  k_cap=192, p=_tparams(p))
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+    np.testing.assert_array_equal(got.in_range.numpy(),
+                                  np.asarray(want.in_range))
+    assert got.in_range.any()
+    for name in RANGE_COUNTERS:
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    assert int(want.spec_hits.sum()) > 0
+    assert got.rounds == int(want.rounds)
+    wd = np.asarray(want.dists)
+    fin = np.isfinite(wd)
+    np.testing.assert_array_equal(np.isfinite(got.dists.numpy()), fin)
+    np.testing.assert_allclose(got.dists.numpy()[fin], wd[fin], atol=2.5e-4,
+                               rtol=1e-6)
+
+
+def test_range_rounds_follow_the_doubling(tds, small_data):
+    """One round is a plain search at Γ; Γ stops doubling past k_cap,
+    and the io of later rounds adds up (the visited mask carries)."""
+    x, q = small_data
+    qt = torch.as_tensor(q)
+    p = _tparams(P_CONF)
+    one = TDS.device_range_search(tds, qt, 1e9, k_cap=48, p=p, rounds=3)
+    plain = TDS.device_anns(tds, qt, dataclasses.replace(p, k=48))
+    assert torch.equal(one.io, plain.io) and one.rounds == plain.rounds
+    assert torch.equal(one.ids, plain.ids)
+    assert bool(one.in_range.all())
+    two = TDS.device_range_search(tds, qt, 1e9, k_cap=96, p=p, rounds=3)
+    assert bool((two.io >= one.io).all()) and two.rounds > one.rounds
+
+
+# ------------------------------------------------------------ tier-0 repack
+
+def test_repack_tier0_matches_jax(jds, tds, tseg, small_segment,
+                                  queries):
+    """The same observed demand re-packs the same blocks into the same
+    slots; the port's results are the same before and after."""
+    rho = small_segment.view.store.num_blocks
+    observed = {b: (b * 7) % 11 for b in range(0, rho, 3)}
+    jnew, jchanged = DS.repack_tier0(jds, small_segment, observed)
+    tnew, tchanged = TDS.repack_tier0(tds, tseg, observed)
+    assert tchanged == jchanged > 0
+    np.testing.assert_array_equal(tnew.hot_slot_of.numpy(),
+                                  np.asarray(jnew.hot_slot_of))
+    for f in ("hot_vecs", "hot_vid", "hot_nbrs"):
+        np.testing.assert_array_equal(getattr(tnew, f).numpy(),
+                                      np.asarray(getattr(jnew, f)))
+    assert TDS.hot_pack_blocks(tnew) == DS.hot_pack_blocks(jnew)
+    qt = torch.as_tensor(queries)
+    p = _tparams(P_CONF)
+    before, after = TDS.device_anns(tds, qt, p), TDS.device_anns(tnew, qt, p)
+    assert torch.equal(before.ids, after.ids)
+    assert torch.equal(before.dists, after.dists)
+    assert torch.equal(before.io + before.tier0_hits,
+                       after.io + after.tier0_hits)
+    plan = sorted(TDS.hot_pack_blocks(tds))[::-1]
+    same, unchanged = TDS.repack_tier0(tds, tseg, {}, plan=plan)
+    assert unchanged == 0

@@ -24,9 +24,14 @@ def _imported(path: pathlib.Path):
 
 def test_port_has_files():
     assert len(FILES) > 10
-    for src in ("tier0_fetch.cu", "l2_tile.cu", "pq_adc.cu"):
-        assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-                / src).exists()
+    pkg = ROOT / "src" / "repro_torch"
+    for src in ("tier0_fetch.cu", "l2_tile.cu", "pq_adc.cu",
+                "block_topk.cu"):
+        assert (pkg / "kernels" / "csrc" / src).exists()
+    for mod in ("io/hottier.py", "kernels/block_topk.py",
+                "core/navgraph.py", "core/device_search.py",
+                "serving/coordinator.py"):
+        assert pkg / mod in FILES
 
 
 @pytest.mark.parametrize("path", FILES,

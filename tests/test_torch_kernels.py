@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import block_topk as TBT
 from repro_torch.kernels import dedup as TD
 from repro_torch.kernels import l2_tile as TL2
 from repro_torch.kernels import ops as TO
@@ -212,8 +213,13 @@ def test_cpu_wrappers_launch_nothing():
     TO.pairwise_l2(torch.ones(3, 4), torch.ones(5, 4))
     TO.pq_adc_batch(torch.zeros(6, 2, dtype=torch.uint8), torch.ones(1, 2, 4))
     assert all(v == 0 for v in K.launch_counts().values())
+    q, b, slot_of, hot, cold = _tier0_case(16, 32, 4, 16, 1, 8)
+    TO.tier0_rank(*map(torch.as_tensor, (q, b, slot_of, hot, cold)))
+    TO.block_rank(torch.ones(3, 4), torch.ones(3, 5, 4), 2)
+    assert all(v == 0 for v in K.launch_counts().values())
     assert set(K.launch_counts()) == {"gather_union", "fused_round_rank",
-                                      "gather_unique", "l2_tile", "pq_adc"}
+                                      "gather_unique", "l2_tile", "pq_adc",
+                                      "tier0_fetch_rank", "block_topk"}
 
 
 # the JAX kernel sweeps' shapes and tolerances (tests/test_kernels.py)
@@ -248,6 +254,114 @@ def test_pq_adc_batch_matches_jax(n, m, k, b):
     got = TO.pq_adc_batch(torch.as_tensor(codes), torch.as_tensor(luts))
     assert got.shape == (b, n)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+# the JAX sweeps' cases (tests/test_kernels.py): hot_n = 0 is the
+# sentinel pack (all cold), hot_n = rho packs every block
+T0_CASES = [(16, 32, 4, 16, 1, 8), (37, 64, 8, 32, 2, 0),
+            (8, 16, 6, 24, 3, 16), (128, 96, 5, 64, 2, 40)]
+# (q, eps, d, top_m); the last has top_m > eps (slots past eps hold 0)
+BT_CASES = [(19, 8, 32, 3), (64, 16, 128, 5), (5, 4, 16, 4),
+            (128, 12, 64, 1), (7, 4, 16, 6)]
+
+
+def _tier0_case(q, rho, eps, d, f, hot_n):
+    """The inputs of the JAX ``test_tier0_fetch_rank_sweep``, as numpy."""
+    rng = np.random.default_rng(q * rho)
+    qs = rng.standard_normal((q, d)).astype(np.float32)
+    cold = rng.standard_normal((rho, eps, d)).astype(np.float32)
+    slot_of = np.full(rho, -1, np.int32)
+    if hot_n > 0:
+        hot_ids = rng.permutation(rho)[:hot_n]
+        slot_of[hot_ids] = np.arange(hot_n, dtype=np.int32)
+        hot = cold[hot_ids]
+    else:
+        hot = np.zeros((1, eps, d), np.float32)
+    blocks = rng.integers(0, rho, (q, f)).astype(np.int32)
+    return qs, blocks, slot_of, hot, cold
+
+
+def _bt_case(q, eps, d):
+    rng = np.random.default_rng(q * eps)
+    return (rng.standard_normal((q, d)).astype(np.float32),
+            rng.standard_normal((q, eps, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("case", T0_CASES)
+def test_tier0_rank_matches_jax(case, metric):
+    """hit equal, distances within atol 1e-4 / rtol 1e-5 (the tolerance
+    of the JAX sweep), and the hot pack's exact copies rank exactly as
+    the all-cold store does."""
+    import jax.numpy as jnp
+    from repro import kernels as JK
+    arrays = _tier0_case(*case)
+    want_d, want_h = JK.tier0_rank(*map(jnp.asarray, arrays), metric=metric)
+    got_d, got_h = TO.tier0_rank(*map(torch.as_tensor, arrays),
+                                 metric=metric)
+    np.testing.assert_array_equal(got_h.numpy(), np.asarray(want_h))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=1e-4,
+                               rtol=1e-5)
+    qs, blocks, slot_of, _, cold = arrays
+    cold_d, cold_h = TO.tier0_rank(
+        *map(torch.as_tensor, (qs, blocks, np.full_like(slot_of, -1),
+                               np.zeros((1,) + cold.shape[1:], np.float32),
+                               cold)), metric=metric)
+    assert torch.equal(got_d, cold_d)
+    assert not cold_h.any()
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("q,eps,d,top", BT_CASES)
+def test_block_rank_matches_jax(q, eps, d, top, metric):
+    """Distances within atol 1e-3 / rtol 1e-5 of the JAX kernel's (both
+    the norm expansion, summed in another order); the slots equal JAX's
+    on every row whose first top+1 distances are apart by more than the
+    tolerance, and always the stable argsort of the port's own
+    distances."""
+    import jax.numpy as jnp
+    from repro import kernels as JK
+    qs, tiles = _bt_case(q, eps, d)
+    want_d, want_i = (np.asarray(a) for a in JK.block_rank(
+        jnp.asarray(qs), jnp.asarray(tiles), top, metric=metric))
+    got_d, got_i = TO.block_rank(torch.as_tensor(qs), torch.as_tensor(tiles),
+                                 top, metric=metric)
+    assert got_i.shape == (q, top) and got_i.dtype == torch.int32
+    np.testing.assert_allclose(got_d.numpy(), want_d, atol=1e-3, rtol=1e-5)
+    srt = np.sort(want_d, axis=1)[:, : min(top, eps - 1) + 1]
+    clear = (np.diff(srt, axis=1) > 1e-3).all(axis=1)
+    assert clear.mean() > 0.5
+    np.testing.assert_array_equal(got_i.numpy()[clear], want_i[clear])
+    own = torch.argsort(got_d, dim=1, stable=True)[:, :top]
+    np.testing.assert_array_equal(got_i.numpy()[:, : min(top, eps)],
+                                  own.numpy())
+    assert (got_i.numpy()[:, eps:] == 0).all()
+
+
+def test_plain_twins_match_jax_refs():
+    import jax.numpy as jnp
+    from repro.kernels import ref as JR
+    for case in T0_CASES:
+        arrays = _tier0_case(*case)
+        for metric in ("l2", "ip"):
+            wd, wh = JR.tier0_fetch_rank_ref(*map(jnp.asarray, arrays),
+                                             metric=metric)
+            gd, gh = TR.tier0_fetch_rank_ref(*map(torch.as_tensor, arrays),
+                                             metric=metric)
+            np.testing.assert_array_equal(gh.numpy(), np.asarray(wh))
+            np.testing.assert_allclose(gd.numpy(), np.asarray(wd),
+                                       atol=1e-4, rtol=1e-5)
+    for q, eps, d, top in BT_CASES:
+        qs, tiles = _bt_case(q, eps, d)
+        for metric in ("l2", "ip"):
+            wd, wi = JR.block_rank_ref(jnp.asarray(qs), jnp.asarray(tiles),
+                                       top, metric=metric)
+            gd, gi = TR.block_rank_ref(torch.as_tensor(qs),
+                                       torch.as_tensor(tiles), top,
+                                       metric=metric)
+            np.testing.assert_allclose(gd.numpy(), np.asarray(wd),
+                                       atol=1e-4, rtol=1e-5)
+            np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
 
 
 # ---------------------------------------------------------------- on the card
@@ -350,3 +464,41 @@ def test_cuda_pq_adc_matches_plain(cuda, n, m, k, b):
     assert TPQ.LAUNCHES["pq_adc"] == 1
     torch.testing.assert_close(got, TR.pq_adc_ref(luts, codes), rtol=1e-6,
                                atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("case", T0_CASES + [(1024, 5000, 6, 128, 2, 500),
+                                             (3, 7, 6, 128, 2, 7)])
+def test_cuda_tier0_fetch_rank_matches_plain(cuda, case, metric):
+    """hit equal; the kernel sums each row as the rank pass does (warp
+    lanes, xor shuffles): atol 1e-4 / rtol 1e-5 against the plain sum."""
+    arrays = _on(cuda, _tier0_case(*case))
+    TT.reset_launches()
+    got_d, got_h = TO.tier0_rank(*arrays, metric=metric)
+    torch.cuda.synchronize()
+    assert TT.LAUNCHES["tier0_fetch_rank"] == 1
+    want_d, want_h = TR.tier0_fetch_rank_ref(*arrays, metric=metric)
+    assert torch.equal(got_h, want_h)
+    torch.testing.assert_close(got_d, want_d, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("q,eps,d,top", BT_CASES + [(1024, 6, 128, 6),
+                                                    (128, 16, 128, 5),
+                                                    (33, 40, 100, 41)])
+def test_cuda_block_topk_matches_plain(cuda, q, eps, d, top, metric):
+    """Distances within atol 1e-3 / rtol 1e-5 of the plain norm
+    expansion; the slots are the stable argsort of the kernel's own
+    distances (the masked argmin), 0 past eps."""
+    qs, tiles = _on(cuda, _bt_case(q, eps, d))
+    TBT.reset_launches()
+    got_d, got_i = TO.block_rank(qs, tiles, top, metric=metric)
+    torch.cuda.synchronize()
+    assert TBT.LAUNCHES["block_topk"] == 1
+    want_d, _ = TR.block_topk_ref(qs, tiles, top, metric=metric)
+    torch.testing.assert_close(got_d, want_d, atol=1e-3, rtol=1e-5)
+    own = torch.argsort(got_d, dim=1, stable=True)[:, :top].to(torch.int32)
+    assert torch.equal(got_i[:, : min(top, eps)], own)
+    assert not got_i[:, eps:].any()
