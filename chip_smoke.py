@@ -20,14 +20,19 @@ them:
      times, the kNN's share, the connectivity fix's attachments, OR(G)
      after BNP and each BNF round, and Eq. 10's memory and disk bytes
      against the 2 GB / 10 GB budget; checks the layout, reachability,
-     degrees and self-loops; the build must launch ``l2_tile``;
+     degrees and self-loops; the build must launch ``l2_tile``, and its
+     launches and operations are printed by the build function they ran
+     in (the kNN, the connectivity fix's host search, the beam search's
+     entry distance, the navigation graph);
   4. vamana: ``build_vamana`` at 100,000 x 128 with the same knobs: time,
      average degree, OR(G) after BNF, reachability;
   5. kernels: each CUDA kernel against its plain PyTorch version — the
      round kernels on the inputs of a real first round of a 1,024-query
      batch (integer outputs equal, distances within atol 1e-4 / rtol
      1e-5, the order equal to a stable argsort of the kernel's own
-     selection key); ``l2_tile`` on the build's kNN chunk, 2,048 of the
+     selection key), and ``gather_union`` also on the first round of a
+     4,096-query batch (R = 8,192, past the first port's 4,096-slot
+     union); ``l2_tile`` on the build's kNN chunk, 2,048 of the
      vectors x all 1M (atol 1e-2 / rtol 1e-5), and the kNN ids of 4,096
      sampled vertices in such chunks; ``pq_adc`` on the segment's codes x
      a 1,024-query batch's LUTs (rtol 1e-5); ``tier0_fetch_rank`` on the
@@ -38,6 +43,7 @@ them:
      slots the stable order of its own distances) — each timed with CUDA
      events next to its plain version and one library call where one
      computes the same function (``torch.cdist``, ``embedding_bag``);
+     ``l2_tile``'s share of its operation bound is printed;
   6. serve: one warm-up batch, then 8 batches of 1,024 queries, k=10,
      with recall@10 against the brute-force oracle (``distances.
      brute_force_knn``, through ``l2_tile``; its ids equal the plain
@@ -65,7 +71,10 @@ them:
      1% of the base ids tombstoned in both tiers, served again: no
      tombstoned id returned; 64 inserted vectors as queries, each that
      the hot route reaches first at distance 0 (the share printed);
- 12. summary: one JSON line of the kernels, the card line, and last
+ 12. large batch: one batch of 4,096 queries (R = 8,192 union slots a
+     round) through ``SegmentServer.search``, its ids equal to the same
+     batch's at ``fetch_impl="ref"``, its launches following the rounds;
+ 13. summary: one JSON line of the kernels, the card line, and last
      ``{"ok": true, "device": {...}}``.
 
 Every served batch is checked: 10 distinct ids per query with ascending
@@ -100,6 +109,7 @@ L2_ATOL, L2_RTOL = 1e-2, 1e-5        # f32 order, squared norms ~1e4
 ITERS = 50                           # launches per kernel timing
 SPIN_CYCLES = 2_000_000              # ~1 ms of card clock before each one
 RANGE_BATCHES, HYBRID_BATCHES = 2, 4 # batches of the range and hybrid
+BIG_BATCH = 4096                     # the large batch: R = 8,192 at F = 2
 INSERTS, SELF_QUERIES = 1024, 64     # hybrid inserts; those queried back
 CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
@@ -216,6 +226,46 @@ def check_graph(g, what: str) -> None:
           f"{what}: a vertex is unreachable from the entry")
 
 
+@contextlib.contextmanager
+def l2_tile_by_call_site(tally: dict, l2, ops, sites):
+    """File every ``l2_tile`` launch made inside the block under the
+    nesting of the build functions ``sites`` ((module, name) pairs) it
+    ran in: ``tally[path] = [launches, operations, {(Q, N): launches}]``.
+    The functions are wrapped for the block's span and then restored."""
+    stack, saved = [], [(m, n, getattr(m, n)) for m, n in sites]
+    pairwise_l2 = ops.pairwise_l2
+
+    def nest(name, fn):
+        def call(*a, **kw):
+            stack.append(name)
+            try:
+                return fn(*a, **kw)
+            finally:
+                stack.pop()
+        return call
+
+    def counted(q, x, *a, **kw):
+        n0, o0 = l2.LAUNCHES["l2_tile"], l2.OPS["l2_tile"]
+        out = pairwise_l2(q, x, *a, **kw)
+        t = tally.setdefault("/".join(stack) or "elsewhere", [0, 0, {}])
+        dn = l2.LAUNCHES["l2_tile"] - n0
+        t[0] += dn
+        t[1] += l2.OPS["l2_tile"] - o0
+        shape = (q.shape[0], x.shape[0])
+        t[2][shape] = t[2].get(shape, 0) + dn
+        return out
+
+    for m, n, fn in saved:
+        setattr(m, n, nest(n, fn))
+    ops.pairwise_l2 = counted
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+        ops.pairwise_l2 = pairwise_l2
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
@@ -235,6 +285,7 @@ def main() -> int:
     from repro_torch.core import distances as D
     from repro_torch.core import graph as G
     from repro_torch.core import layout as L
+    from repro_torch.core import navgraph as NG
     from repro_torch.core.params import (SEGMENT_BENCH_DEVICE,
                                          SERVE_DEVICE_SEARCH, HotTierParams)
     from repro_torch.core.segment import build_segment
@@ -243,6 +294,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import block_topk as BT
     from repro_torch.kernels import l2_tile as L2
+    from repro_torch.kernels import ops as KO
     from repro_torch.kernels import pq_adc as PQK
     from repro_torch.kernels import tier0_fetch as T0
     from repro_torch.pq.pq import PQCodebook, adc_lut_batch
@@ -283,7 +335,11 @@ def main() -> int:
         x = clustered_vectors(args.n, DIM, seed=args.seed)
         print(f"  vectors_s: {time.perf_counter() - t0:.3f}")
         K.reset_all_launches()
-        seg = build_segment(x, params, device=device)
+        sites = {}
+        with l2_tile_by_call_site(sites, L2, KO, (
+                (NG, "build_navgraph"), (D, "knn_graph"),
+                (G, "_nearest_hosts"), (G, "greedy_search_batch"))):
+            seg = build_segment(x, params, device=device)
         built = K.launch_counts()
         launches["l2_tile"] = built["l2_tile"]
         for name in OFF_PATH:
@@ -307,7 +363,15 @@ def main() -> int:
         print(f"  memory_bytes {mem} of {params.budget.memory_bytes} "
               f"(Eq. 10); disk_bytes {disk} of {params.budget.disk_bytes}; "
               f"check_budget {seg.check_budget()}")
-        print(f"  l2_tile launches in the build: {launches['l2_tile']}")
+        print(f"  l2_tile launches in the build: {launches['l2_tile']}, "
+              f"{L2.OPS['l2_tile']} operations (2·Q·N·D)")
+        for path, (cnt, ops_, shapes) in sorted(sites.items()):
+            top = sorted(shapes.items(), key=lambda kv: -kv[1])[:3]
+            print(f"    in {path}: {cnt} launches, {ops_} operations, "
+                  f"{len(shapes)} shapes; most launched "
+                  f"{[(list(sh), k) for sh, k in top]}")
+        check(sum(v[0] for v in sites.values()) == launches["l2_tile"],
+              "l2_tile launches outside ops.pairwise_l2 in the build")
         seg.layout.validate()
         check_graph(seg.graph, "disk graph")
         check(mem <= params.budget.memory_bytes
@@ -353,7 +417,8 @@ def main() -> int:
     queries = query_set(x, nq * (BATCHES + 3), seed=1)
     batches = [queries[i * nq:(i + 1) * nq]
                for i in range(BATCHES + 3)]
-    kern = {}
+    big = query_set(x, BIG_BATCH, seed=5)    # its own seed: the batches
+    kern = {}                                # above stay those of before
 
     with phase("5 kernels against plain versions"):
         q0 = torch.as_tensor(batches[0], device=device)
@@ -389,6 +454,25 @@ def main() -> int:
             "library_ms": time_ms(lambda: torch.unique(
                 b.reshape(-1), sorted=True, return_inverse=True), device,
                 ITERS, flush)}
+
+        # the first round of a 4,096-query batch: R = 8,192
+        qb4, _, st4 = DS.initial_state(
+            ds, torch.as_tensor(big, device=device), p)
+        u4, _ = DS.pick_candidates(st4["cand_id"], st4["open_key"], fw)
+        b4 = ds.block_of[u4.long().clamp_min(0)]
+        got = T0.gather_union(b4, *args_g)
+        want = ref.gather_union_ref(b4, *args_g)
+        for name, g, w in zip(("uniq", "rank2d", "tiles", "vid", "nbrs"),
+                              got, want):
+            check(torch.equal(g, w), f"gather_union {name} differs at "
+                  f"R={b4.numel()}")
+        del got, want
+        ms4 = time_ms(lambda: T0.gather_union(b4, *args_g), device, ITERS,
+                      flush)
+        print(f"  gather_union at R={b4.numel()} "
+              f"({int(torch.unique(b4).numel())} distinct): equal to the "
+              f"plain version; {ms4:.6f} ms")
+        del qb4, st4, u4, b4
 
         got = T0.gather_unique(uniq, *args_g)
         want = ref.gather_unique_ref(uniq, *args_g)
@@ -592,6 +676,10 @@ def main() -> int:
                   f"{k['library_ms']} max_abs_err={k['max_abs_err']:.3e} "
                   f"bound_by={k['bound_by']}")
         print(f"  round inputs: R={r}, distinct={ndist}")
+        print(f"  l2_tile at the kNN chunk: {kern['l2_tile']['bound_ms'] / kern['l2_tile']['ms']:.4f}"
+              f" of its operation bound "
+              f"({kern['l2_tile']['ops'] / kern['l2_tile']['ms'] / 1e9:.3f} "
+              f"TFLOP/s f32 against {F32_OPS_PER_S / 1e12:.0f})")
         del flush
 
     with phase("6 serve"):
@@ -963,6 +1051,28 @@ def main() -> int:
               f"{SELF_QUERIES} inserted vectors found themselves, each "
               f"first at distance 0")
         count_off_path()
+
+    with phase("12 large batch"):
+        # 4,096 queries: R = 8,192 union slots a round, past the 4,096 the
+        # first port's one-CTA union sorted
+        K.reset_all_launches()
+        ids_b, d_b, ms_b = serve(big, srv)
+        st_b = srv.batch_stats()
+        got = count_off_path()
+        ids_r, d_r, ms_r = serve(big, srv_ref)
+        check_results(big, ids_b, d_b)
+        print(f"  {BIG_BATCH} queries: {ms_b:.3f} ms ({BIG_BATCH / ms_b * 1e3:.1f}"
+              f" QPS), rounds {st_b['rounds']}, io {st_b['io'].mean():.3f}, "
+              f"tier0_hits {st_b['tier0_hits'].mean():.3f}, dedup_saved "
+              f"{st_b['dedup_saved'].mean():.3f} per query; launches {got}; "
+              f"plain path {ms_r:.3f} ms; ids equal on "
+              f"{float((ids_b == ids_r).all(1).mean()):.4f} of queries")
+        check(np.array_equal(ids_b, ids_r),
+              "the large batch's ids differ from the plain path's")
+        if on_card:
+            check(got["gather_union"] == st_b["rounds"] > 0
+                  and got["fused_round_rank"] == st_b["rounds"],
+                  "large-batch launches do not follow the rounds")
 
     out = []
     for name, (src, replaces) in KERNELS.items():

@@ -27,15 +27,16 @@ P, I = ctypes.c_void_p, ctypes.c_int
 # C signatures of every entry point, by source
 SIGNATURES = {
     "tier0_fetch": {
-        "t0_union": [P, I, P, P, P],
+        "t0_union_in_smem": [I],
+        "t0_gather_union": [P, I, P, P, P, P, I, I, I, I, P, P, P, P, P, P],
         "t0_gather": [P, I, P, P, P, I, I, I, I, P, P, P, P],
         "t0_rank": [P, P, P, P, I, P, I, P, P, P, I, P, P, P, I, I, I, I,
                     I, I, I, I, P, P, P, P, P, P],
         "t0_fetch_rank": [P, P, I, I, P, I, P, I, P, I, I, I, P, P, P],
     },
     "l2_tile": {
-        "l2_tile_f32": [P, P, I, I, I, I, P, P],
-        "l2_tile_bf16": [P, P, I, I, I, I, P, P],
+        "l2_tile_f32": [P, P, I, I, I, I, P, P, P],
+        "l2_tile_bf16": [P, P, I, I, I, I, P, P, P],
     },
     "pq_adc": {
         "pq_adc": [P, P, I, I, I, I, I, P, P],

@@ -2,7 +2,7 @@
 //
 // They replace the Pallas TPU kernels of repro/kernels/tier0_fetch.py:
 //
-//   t0_union + t0_gather  <-  gather_union (_union_into_smem,
+//   t0_gather_union       <-  gather_union (_union_into_smem,
 //                             _gather_union_kernel, _gather_union_dma_kernel,
 //                             _double_buffered_gather)
 //   t0_gather             <-  gather_unique (_gather_unique_kernel,
@@ -14,19 +14,26 @@
 // few MB of block payload (ε·D floats, ε ids, ε·Λ neighbour ids per block)
 // and computes Q·F·ε·D multiply-adds, some 10^2 operations per KB.
 //
-//  * Union. The TPU kernel uses an O(R^2) sort-free formulation because
-//    Mosaic has no sort. Here one CTA bitonic-sorts the R (key, slot)
-//    pairs as 64-bit words in shared memory (R <= 4096, 32 KB), marks the
-//    first slot of each key run and prefix-sums the marks into ranks. The
-//    slot index in the low word makes every word distinct, so the sorted
-//    order is the stable order and the outputs equal the plain
-//    sorted_unique_ranks exactly. The union is one CTA: at R = 2048 it is
-//    a few microseconds of launch and shared-memory work.
-//  * Gather. One CTA per union row copies the row's block with 16-byte
-//    loads and stores where the row is 16-byte aligned, so each distinct
-//    block is read from HBM once. Many CTAs in flight take the place of
-//    the TPU's two-slot make_async_copy schedule; cp.async / TMA staging
-//    is later work.
+//  * Union and copy (t0_gather_union), one launch. The TPU kernel uses an
+//    O(R^2) sort-free formulation because Mosaic has no sort. Here the keys
+//    are block ids, so the union is a presence bitmap over the rho blocks
+//    (rho / 8 bytes: 20.8 KB at rho = 166,667) with a popcount prefix per
+//    group of 32 words: a slot's rank is the prefix of its word's group
+//    plus the popcounts before it, and the j-th union row is the j-th set
+//    bit. Every CTA builds the bitmap itself from the R keys (4 bytes each,
+//    read from L2), so no CTA waits for another and there is no cap on R;
+//    each then writes the ranks of its share of the slots, and uniq and
+//    the copy of its share of the union rows, a warp per row with 16-byte
+//    moves, eight in flight a lane. Rows past the distinct count hold
+//    block 0, as the plain version's do. Where the bitmap does not fit a
+//    CTA's shared memory (rho past ~1.8M blocks), a first launch marks it
+//    in device memory that the wrapper zeroed, and the CTAs read it from
+//    L2. Keys must lie in [0, rho), as the serving path's do; one outside
+//    is clamped into range, so the kernel reads no memory outside the
+//    store (its outputs then need not equal the plain version's).
+//  * Gather (t0_gather, gather_unique). One CTA per union row copies the
+//    row's block with 16-byte loads and stores where the row is 16-byte
+//    aligned, so each distinct block is read from HBM once.
 //  * Rank. One CTA per query. The query's tile (bq rows) is idle when no
 //    row picked a candidate; then the CTA writes the sentinels and stops.
 //    Otherwise it probes the tier-0 map for each of its F union rows,
@@ -49,88 +56,163 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// n words from src to dst by one warp: 16-byte moves where both rows are
+// 16-byte aligned, eight in flight per lane, else one word at a time.
+__device__ __forceinline__ void warp_copy(int* __restrict__ dst,
+                                          const int* __restrict__ src,
+                                          long n, int lane) {
+  if (n % 4 == 0 && ((reinterpret_cast<uintptr_t>(dst) |
+                      reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    int4* d4 = reinterpret_cast<int4*>(dst);
+    const long n4 = n / 4;
+    for (long i0 = lane; i0 < n4; i0 += 8 * 32) {
+      int4 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (i0 + 32 * u < n4) v[u] = s4[i0 + 32 * u];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (i0 + 32 * u < n4) d4[i0 + 32 * u] = v[u];
+    }
+  } else {
+    for (long i = lane; i < n; i += 32) dst[i] = src[i];
+  }
+}
+
 // ------------------------------------------------------------------ union
 
-__global__ void union_kernel(const int* __restrict__ b, int r, int p,
-                             int* __restrict__ uniq, int* __restrict__ rank) {
-  extern __shared__ unsigned long long words[];   // [p] + scan scratch
-  int* warp_sum = reinterpret_cast<int*>(words + p);  // [32]
-  const int tid = threadIdx.x, nt = blockDim.x;
+constexpr int U_NT = 512;     // threads of a union CTA (16 warps)
+constexpr int U_ROWS = 16;    // union rows a CTA takes at the least
 
-  for (int i = tid; i < p; i += nt) {
-    unsigned long long w = ~0ull;                 // padding sorts last
-    if (i < r) {
-      unsigned int k = static_cast<unsigned int>(b[i]) ^ 0x80000000u;
-      w = (static_cast<unsigned long long>(k) << 32) |
-          static_cast<unsigned int>(i);
-    }
-    words[i] = w;
-  }
-  __syncthreads();
-
-  // bitonic sort, ascending
-  for (int k = 2; k <= p; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < p; i += nt) {
-        int ixj = i ^ j;
-        if (ixj > i) {
-          unsigned long long a = words[i], c = words[ixj];
-          bool up = (i & k) == 0;
-          if ((a > c) == up) {
-            words[i] = c;
-            words[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  // each thread owns a contiguous run of sorted positions
-  const int per = (r + nt - 1) / nt;
-  const int lo = min(tid * per, r), hi = min(lo + per, r);
-  int firsts = 0;
-  for (int i = lo; i < hi; ++i)
-    firsts += (i == 0) || ((words[i] >> 32) != (words[i - 1] >> 32));
-
-  // block-wide exclusive scan of the per-thread counts
-  const int lane = tid & 31, warp = tid >> 5, nwarps = (nt + 31) >> 5;
-  int incl = firsts;
+__device__ __forceinline__ int warp_incl_scan(int v, int lane) {
   for (int off = 1; off < 32; off <<= 1) {
-    int v = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += v;
+    int t = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += t;
   }
-  if (lane == 31) warp_sum[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int v = lane < nwarps ? warp_sum[lane] : 0;
-    for (int off = 1; off < 32; off <<= 1) {
-      int s = __shfl_up_sync(0xffffffffu, v, off);
-      if (lane >= off) v += s;
-    }
-    warp_sum[lane] = v;                           // inclusive warp prefix
-  }
-  __syncthreads();
-  const int distinct = warp_sum[nwarps - 1];
-  int run = incl - firsts + (warp > 0 ? warp_sum[warp - 1] : 0);
+  return v;
+}
 
-  for (int i = lo; i < hi; ++i) {
-    unsigned long long w = words[i];
-    bool first = (i == 0) || ((w >> 32) != (words[i - 1] >> 32));
-    run += first;
-    int rk = run - 1;
-    rank[static_cast<unsigned int>(w & 0xffffffffu)] = rk;
-    if (first)
-      uniq[rk] = static_cast<int>(static_cast<unsigned int>(w >> 32) ^
-                                  0x80000000u);
+// Sets bit k of the device bitmap for every key (the form for a rho whose
+// bitmap does not fit a CTA's shared memory; the wrapper zeroes it).
+__global__ void mark_kernel(const int* __restrict__ b, int r, int rho,
+                            unsigned* __restrict__ bm) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < r) {
+    const int k = clampi(b[i], 0, rho - 1);
+    atomicOr(bm + (k >> 5), 1u << (k & 31));
   }
-  for (int i = distinct + tid; i < r; i += nt) uniq[i] = 0;
+}
+
+// Union and copy in one pass. Every CTA derives the union itself from the
+// r keys (a few KB, read from L2): a presence bitmap over the rho blocks
+// (in shared memory, or the device bitmap mark_kernel set), the popcount
+// of each group of 32 words, and their exclusive prefix gpre. Then
+//   rank(k)  = gpre[k >> 10] + popc of the words before k's in its group
+//              + popc(word & bits below k),
+//   uniq[j]  = the j-th set bit (a binary search of gpre, a warp scan of
+//              the group's popcounts, then the bit within the word),
+// so no CTA waits for another. A CTA takes a contiguous share of the
+// slots (their ranks) and of the union rows (uniq and the row's copy, a
+// warp per row, 16-byte moves); rows past the distinct count copy block
+// 0, as uniq holds 0 there.
+template <bool SMEM_BM>
+__global__ void __launch_bounds__(U_NT)
+union_gather_kernel(const int* __restrict__ b, int r, int rho,
+                    const unsigned* __restrict__ dev_bm,
+                    const float* __restrict__ vecs,
+                    const int* __restrict__ vid,
+                    const int* __restrict__ nbrs, int eps, int d, int lam,
+                    int* __restrict__ uniq, int* __restrict__ rank,
+                    float* __restrict__ tv, int* __restrict__ ti,
+                    int* __restrict__ tn) {
+  extern __shared__ unsigned usm[];
+  const int words = (rho + 31) >> 5, groups = (words + 31) >> 5;
+  unsigned* gpre = usm;                           // [groups + 1]
+  const unsigned* bm = dev_bm;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = U_NT / 32;
+
+  if (SMEM_BM) {
+    unsigned* sbm = usm + groups + 1;             // [words]
+    for (int w = tid; w < words; w += U_NT) sbm[w] = 0u;
+    __syncthreads();
+    for (int i = tid; i < r; i += U_NT) {
+      const int k = clampi(b[i], 0, rho - 1);
+      atomicOr(sbm + (k >> 5), 1u << (k & 31));
+    }
+    __syncthreads();
+    bm = sbm;
+  }
+
+  for (int g = warp; g < groups; g += nwarps) {   // group popcounts
+    const int w = (g << 5) + lane;
+    int c = w < words ? __popc(bm[w]) : 0;
+    for (int off = 16; off > 0; off >>= 1)
+      c += __shfl_xor_sync(0xffffffffu, c, off);
+    if (lane == 0) gpre[g + 1] = c;
+  }
+  __syncthreads();
+  if (warp == 0) {                                // exclusive prefix
+    int carry = 0;
+    for (int g0 = 0; g0 < groups; g0 += 32) {
+      const int g = g0 + lane;
+      const int v = warp_incl_scan(g < groups ? gpre[g + 1] : 0, lane);
+      if (g < groups) gpre[g + 1] = carry + v;
+      carry += __shfl_sync(0xffffffffu, v, 31);
+    }
+    if (lane == 0) gpre[0] = 0;
+  }
+  __syncthreads();
+  const int distinct = gpre[groups];
+
+  const int per = max(U_ROWS, (r + gridDim.x - 1) / gridDim.x);
+  const int lo = min(r, static_cast<int>(blockIdx.x) * per);
+  const int hi = min(r, lo + per);
+
+  for (int i = lo + tid; i < hi; i += U_NT) {     // slot ranks
+    const int k = clampi(b[i], 0, rho - 1);
+    const int w = k >> 5, base = w & ~31;
+    int c = gpre[w >> 5] + __popc(bm[w] & ((1u << (k & 31)) - 1u));
+#pragma unroll
+    for (int t = 0; t < 32; ++t)
+      if (base + t < w) c += __popc(bm[base + t]);
+    rank[i] = c;
+  }
+
+  const long vd = static_cast<long>(eps) * d, vl = static_cast<long>(eps) * lam;
+  for (int j = lo + warp; j < hi; j += nwarps) {  // union rows
+    int blk = 0;
+    if (j < distinct) {
+      int g0 = 0, g1 = groups - 1;                // last g: gpre[g] <= j
+      while (g0 < g1) {
+        const int mid = (g0 + g1 + 1) >> 1;
+        if (static_cast<int>(gpre[mid]) <= j) g0 = mid; else g1 = mid - 1;
+      }
+      const int w = (g0 << 5) + lane;
+      const unsigned word = w < words ? bm[w] : 0u;
+      const int pc = __popc(word);
+      const int incl = static_cast<int>(gpre[g0]) + warp_incl_scan(pc, lane);
+      const int at = __ffs(__ballot_sync(0xffffffffu, incl > j)) - 1;
+      unsigned m = word;
+      for (int t = lane == at ? j - (incl - pc) : 0; t > 0; --t) m &= m - 1u;
+      blk = __shfl_sync(0xffffffffu, (w << 5) + __ffs(m) - 1, at);
+    }
+    if (lane == 0) uniq[j] = blk;
+    warp_copy(reinterpret_cast<int*>(tv + j * vd),
+              reinterpret_cast<const int*>(vecs + blk * vd), vd, lane);
+    warp_copy(ti + static_cast<long>(j) * eps, vid + static_cast<long>(blk) * eps,
+              eps, lane);
+    warp_copy(tn + j * vl, nbrs + blk * vl, vl, lane);
+  }
 }
 
 // ----------------------------------------------------------------- gather
@@ -326,16 +408,76 @@ __global__ void probe_kernel(const float* __restrict__ q,
 
 extern "C" {
 
-// b [r] i32 -> uniq [r] i32 (0 past the distinct count), rank [r] i32.
-int t0_union(const int* b, int r, int* uniq, int* rank, void* stream) {
+// Shared memory of the union CTA for rho blocks, the bitmap in it or not.
+static size_t union_smem(int rho, bool with_bitmap) {
+  const size_t words = (static_cast<size_t>(rho) + 31) / 32;
+  return ((words + 31) / 32 + 1 + (with_bitmap ? words : 0)) *
+         sizeof(unsigned);
+}
+
+static int union_limits(int* max_smem, int* max_ctas) {
+  static int smem = 0, ctas = 0;
+  if (!smem) {
+    int dev = 0, sms = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(union_gather_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(union_gather_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem = optin;
+    ctas = 2 * sms;
+  }
+  *max_smem = smem;
+  *max_ctas = ctas;
+  return 0;
+}
+
+// 1 if a union over rho blocks keeps its bitmap in shared memory; 0 if it
+// needs the device bitmap of (rho + 31) / 32 zeroed words; < 0 on error.
+int t0_union_in_smem(int rho) {
+  int smem = 0, ctas = 0;
+  const int e = union_limits(&smem, &ctas);
+  if (e) return -e;
+  return union_smem(rho, true) <= static_cast<size_t>(smem) ? 1 : 0;
+}
+
+// b [r] i32 -> uniq [r] i32 (ascending, 0 past the distinct count), rank
+// [r] i32, tiles [r, eps, d] f32, vid [r, eps] i32, nbrs [r, eps, lam]
+// i32. bm: the zeroed device bitmap where t0_union_in_smem(rho) is 0,
+// else unused.
+int t0_gather_union(const int* b, int r, unsigned* bm, const float* vecs,
+                    const int* vid, const int* nbrs, int rho, int eps, int d,
+                    int lam, int* uniq, int* rank, float* tv, int* ti,
+                    int* tn, void* stream) {
   if (r <= 0) return 0;
-  int p = 1;
-  while (p < r) p <<= 1;
-  const int threads = 1024;
-  size_t smem = static_cast<size_t>(p) * sizeof(unsigned long long) +
-                32 * sizeof(int);
-  union_kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      b, r, p, uniq, rank);
+  if (rho <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int smem = 0, max_ctas = 0;
+  const int e = union_limits(&smem, &max_ctas);
+  if (e) return e;
+  const int ctas = std::min((r + U_ROWS - 1) / U_ROWS, max_ctas);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (union_smem(rho, true) <= static_cast<size_t>(smem)) {
+    union_gather_kernel<true><<<ctas, U_NT, union_smem(rho, true), st>>>(
+        b, r, rho, nullptr, vecs, vid, nbrs, eps, d, lam, uniq, rank, tv, ti,
+        tn);
+  } else {
+    if (bm == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    mark_kernel<<<(r + 255) / 256, 256, 0, st>>>(b, r, rho, bm);
+    const cudaError_t me = cudaGetLastError();
+    if (me != cudaSuccess) return static_cast<int>(me);
+    union_gather_kernel<false><<<ctas, U_NT, union_smem(rho, false), st>>>(
+        b, r, rho, bm, vecs, vid, nbrs, eps, d, lam, uniq, rank, tv, ti, tn);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,9 +4,10 @@ tier0_fetch.cu``) and their wrappers.
 One search round, for the F candidates each query picked:
 
   * ``gather_union`` — the whole-batch sorted-unique union of the
-    target blocks plus the slot -> unique-rank map (one CTA), then one
-    copy of each distinct block's vectors, ids and neighbour rows (one
-    CTA per union row). Replaces ``repro.kernels.tier0_fetch.
+    target blocks plus the slot -> unique-rank map, and one copy of each
+    distinct block's vectors, ids and neighbour rows, in one launch: every
+    CTA derives the union from a presence bitmap over the blocks, so any
+    batch size is served. Replaces ``repro.kernels.tier0_fetch.
     gather_union``.
   * ``gather_unique`` — the copy alone, for a union computed by plain
     ops (the two-pass path, ``fuse_union=False``). Replaces
@@ -39,7 +40,6 @@ import torch
 from repro_torch.kernels import _build, dedup, ref
 
 BQ = 128          # query-tile size of the rank pass
-MAX_UNION = 4096  # largest batch union (Q*F) the one-CTA union kernel sorts
 
 LAUNCHES = {"gather_union": 0, "fused_round_rank": 0, "gather_unique": 0,
             "tier0_fetch_rank": 0}
@@ -91,22 +91,35 @@ def gather_union(b: torch.Tensor, vecs: torch.Tensor, vid: torch.Tensor,
     """b [Q, F] i32 target blocks -> (uniq [R] i32, rank2d [Q, F] i32,
     tiles [R, eps, D], vid [R, eps], nbrs [R, eps, Lam]) with R = Q*F:
     the ascending distinct blocks (0 past the distinct count), each
-    slot's rank among them, and one copy of each union row's block."""
+    slot's rank among them, and one copy of each union row's block. Any
+    R. Block ids must lie in [0, rho), as the serving path's do; the
+    kernel clamps any other into range so that it reads nothing outside
+    the store, so there its outputs may differ from the plain version's."""
     if b.device.type == "cpu":
         return ref.gather_union_ref(b, vecs, vid, nbrs)
     _build.require("gather_union", b=(b, torch.int32),
                    **_store_operands(vecs, vid, nbrs))
     qn, f = b.shape
+    rho, eps, d = vecs.shape
+    lam = nbrs.shape[2]
     r = qn * f
-    if r > MAX_UNION:
-        raise ValueError(f"gather_union: batch union of {r} slots exceeds "
-                         f"the one-CTA sort's {MAX_UNION}")
-    uniq = torch.empty(r, dtype=torch.int32, device=b.device)
-    rank2d = torch.empty((qn, f), dtype=torch.int32, device=b.device)
+    dev = b.device
+    uniq = torch.empty(r, dtype=torch.int32, device=dev)
+    rank2d = torch.empty((qn, f), dtype=torch.int32, device=dev)
+    tv = torch.empty((r, eps, d), dtype=torch.float32, device=dev)
+    ti = torch.empty((r, eps), dtype=torch.int32, device=dev)
+    tn = torch.empty((r, eps, lam), dtype=torch.int32, device=dev)
     lib = _build.load("tier0_fetch")
-    _build.check(lib.t0_union(_ptr(b), r, _ptr(uniq), _ptr(rank2d),
-                              _build.stream()), "t0_union")
-    tv, ti, tn = _launch_gather(uniq, vecs, vid, nbrs)
+    in_smem = lib.t0_union_in_smem(rho)
+    if in_smem < 0:
+        raise RuntimeError(f"t0_union_in_smem: CUDA error {-in_smem}")
+    # past a CTA's shared memory the bitmap lies in device memory, zeroed
+    bm = (None if in_smem else
+          torch.zeros((rho + 31) // 32, dtype=torch.int32, device=dev))
+    _build.check(lib.t0_gather_union(
+        _ptr(b), r, None if bm is None else _ptr(bm), _ptr(vecs), _ptr(vid),
+        _ptr(nbrs), rho, eps, d, lam, _ptr(uniq), _ptr(rank2d), _ptr(tv),
+        _ptr(ti), _ptr(tn), _build.stream()), "t0_gather_union")
     LAUNCHES["gather_union"] += 1
     return uniq, rank2d, tv, ti, tn
 

@@ -85,7 +85,8 @@ def _store(seed, rho=24, eps=4, d=16, lam=5):
     return vecs, vid, nbrs
 
 
-@pytest.mark.parametrize("qn,f,seed", [(16, 3, 7), (8, 1, 8), (37, 2, 9)])
+@pytest.mark.parametrize("qn,f,seed", [(16, 3, 7), (8, 1, 8), (37, 2, 9),
+                                       (2560, 2, 10)])   # R = 5,120
 def test_gather_union_and_unique_match_jax(qn, f, seed):
     import jax.numpy as jnp
     from repro.kernels.tier0_fetch import gather_union, gather_unique
@@ -220,6 +221,7 @@ def test_cpu_wrappers_launch_nothing():
     assert set(K.launch_counts()) == {"gather_union", "fused_round_rank",
                                       "gather_unique", "l2_tile", "pq_adc",
                                       "tier0_fetch_rank", "block_topk"}
+    assert TL2.OPS["l2_tile"] == 0
 
 
 # the JAX kernel sweeps' shapes and tolerances (tests/test_kernels.py)
@@ -397,6 +399,38 @@ def test_cuda_gather_kernels_match_plain(cuda, qn, f):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("r,rho,eps,d,lam,lo,hi", [
+    (2048, 166_667, 6, 8, 24, 0, 166_667),       # the served rho
+    (8192, 166_667, 6, 8, 24, 0, 166_667),       # 4,096 queries at F=2
+    (20_000, 166_667, 6, 8, 24, 0, 1000),        # many repeats
+    (8192, 5000, 6, 128, 24, -7, 5007),          # ids out of range
+    (20_000, 2_000_000, 6, 8, 4, 0, 2_000_000),  # device bitmap
+])
+def test_cuda_gather_union_any_r_and_rho(cuda, r, rho, eps, d, lam, lo, hi):
+    """Past 4,096 union slots (R) and past the shared-memory
+    bitmap (rho > ~1.8M blocks): all five outputs equal the plain
+    version's, bit for bit, in one counted launch."""
+    gen = torch.Generator(device=cuda).manual_seed(r + rho)
+    vecs = torch.randn((rho, eps, d), generator=gen, device=cuda)
+    vid = torch.randint(-1, rho * eps, (rho, eps), generator=gen,
+                        device=cuda, dtype=torch.int32)
+    nbrs = torch.randint(-1, rho * eps, (rho, eps, lam), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    b = torch.randint(lo, hi, (r // 2, 2), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    TT.reset_launches()
+    got = TT.gather_union(b, vecs, vid, nbrs)
+    torch.cuda.synchronize()
+    assert TT.LAUNCHES["gather_union"] == 1
+    # an id out of range is clamped by the kernel, not by the plain
+    # version (which follows JAX): compare there on the clamped ids
+    want = TR.gather_union_ref(b.clamp(0, rho - 1), vecs, vid, nbrs)
+    for name, g, w in zip(("uniq", "rank2d", "tiles", "vid", "nbrs"),
+                          got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("case", sorted(ROUND_CASES))
 def test_cuda_fused_round_matches_plain(cuda, case, metric):
@@ -428,12 +462,17 @@ def test_cuda_fused_round_matches_plain(cuda, case, metric):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("q,n,d", [(8, 64, 16), (37, 203, 64), (1, 9, 8),
-                                   (300, 1029, 128), (129, 257, 100)])
+                                   (300, 1029, 128), (129, 257, 100),
+                                   (2049, 100_003, 128), (129, 70_001, 100)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_cuda_l2_tile_matches_plain(cuda, q, n, d, dtype, metric):
     """f32 sums in another order than cuBLAS: atol 1e-3 on values of a
-    few hundred (bf16 inputs are cast to f32 first, so the same)."""
+    few hundred (bf16 inputs are cast to f32 first, so the same). The
+    last two shapes are ragged and past one wave of CTAs (2049 x 100,003
+    is 17 x 782 tiles, two CTAs an SM on 132 SMs). Each output is one
+    fmaf chain over D in order, so a slice of the rows and columns gives
+    the same bits; the counters add one launch and 2·Q·N·D operations."""
     rng = np.random.default_rng(q * n)
     qa = torch.as_tensor(rng.standard_normal((q, d)), dtype=dtype,
                          device=cuda)
@@ -443,8 +482,12 @@ def test_cuda_l2_tile_matches_plain(cuda, q, n, d, dtype, metric):
     got = TL2.l2_tile(qa, xa, metric=metric)
     torch.cuda.synchronize()
     assert TL2.LAUNCHES["l2_tile"] == 1
+    assert TL2.OPS["l2_tile"] == 2 * q * n * d
     want = TR.pairwise_l2_ref(qa, xa, metric=metric)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    part = TL2.l2_tile(qa[q // 3:].contiguous(), xa[n // 3:].contiguous(),
+                       metric=metric)
+    assert torch.equal(part, got[q // 3:, n // 3:])
 
 
 @pytest.mark.gpu
