@@ -42,8 +42,16 @@ them:
      micro-bench's [128, 16, 128], m = 5 (atol 1e-3 / rtol 1e-5, the
      slots the stable order of its own distances) — each timed with CUDA
      events next to its plain version and one library call where one
-     computes the same function (``torch.cdist``, ``embedding_bag``);
-     ``l2_tile``'s share of its operation bound is printed;
+     computes the same function (``torch.unique``, three
+     ``index_select``, ``torch.cdist``, ``embedding_bag``); on live rows
+     ``fused_round_rank``'s distances equal ``tier0_fetch_rank``'s bit
+     for bit; the shares of their bounds are printed, and each must lie
+     in (0, 1]; the timing's floor (an empty launch) and the round
+     kernels' times with their inputs in L2 are printed; with
+     ``--against`` other copies of ``tier0_fetch.cu`` (an earlier
+     commit's, variants) are built beside this one, their four kernels
+     must give the same bits on the same inputs, and each is timed in
+     turns with this one (other, this, this, other);
   6. serve: one warm-up batch, then 8 batches of 1,024 queries, k=10,
      with recall@10 against the brute-force oracle (``distances.
      brute_force_knn``, through ``l2_tile``; its ids equal the plain
@@ -74,16 +82,20 @@ them:
  12. large batch: one batch of 4,096 queries (R = 8,192 union slots a
      round) through ``SegmentServer.search``, its ids equal to the same
      batch's at ``fetch_impl="ref"``, its launches following the rounds;
- 13. summary: one JSON line of the kernels, the card line, and last
-     ``{"ok": true, "device": {...}}``.
+ 13. summary: the launches of every kernel by phase (the build, Vamana,
+     each window of phases 6-12; phase 5's comparisons are not counted)
+     and in total; one JSON line of the kernels with the totals, the card
+     line, and last ``{"ok": true, "device": {...}}``.
 
 Every served batch is checked: 10 distinct ids per query with ascending
 distances, each the exact distance of its id. recall@10 is printed, not
 bounded.
 
-Any failed check exits non-zero. ``--device cpu --n 20000`` rehearses the
-whole script on the CPU with the plain versions (for rehearsal only; its
-Vamana phase then builds n/4 vectors).
+Any failed check exits non-zero, and so does a run without a CUDA card
+or from a directory without the port's package (``src/repro_torch``)
+beside the script. ``--device cpu --n 20000`` rehearses the whole script
+on the CPU with the plain versions (for rehearsal only; its Vamana phase
+then builds n/4 vectors).
 """
 from __future__ import annotations
 
@@ -125,8 +137,7 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                          "src/repro/kernels/tier0_fetch.py:444"),
     "block_topk": ("block_topk.cu", "src/repro/kernels/block_topk.py:51"),
 }
-# kernels of the kernel API alone: their counts are read over every path
-OFF_PATH = ("pq_adc", "tier0_fetch_rank", "block_topk")
+REDESIGNED = ("fused_round_rank", "gather_unique")   # their bound shares
 
 
 class SmokeFailure(Exception):
@@ -273,13 +284,21 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="segment size; smaller only to rehearse")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--against", nargs="+", default=[],
+                    help="other copies of tier0_fetch.cu (an earlier "
+                         "commit's, variants) to build, hold bit for bit "
+                         "and time beside this one")
     args = ap.parse_args()
 
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: no src/repro_torch beside {__file__}: run it "
+              f"from a checkout of the repository", file=sys.stderr)
+        return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "src"))
+    sys.path.insert(0, src)
     from repro_torch import kernels as K
     from repro_torch.core import device_search as DS
     from repro_torch.core import distances as D
@@ -304,7 +323,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(args.device)
     on_card = device.type == "cuda"
-    launches = {}
+    by_phase = {}                      # window -> {kernel: launches}
+
+    def take(window: str) -> dict:
+        """The launches since the last take (or reset), filed under
+        ``window``; the counters restart at 0."""
+        got = K.launch_counts()
+        K.reset_all_launches()
+        acc = by_phase.setdefault(window, dict.fromkeys(got, 0))
+        for name, v in got.items():
+            acc[name] += v
+        return got
 
     with phase("1 card"):
         card = card_line() if on_card else "cpu rehearsal"
@@ -340,10 +369,7 @@ def main() -> int:
                 (NG, "build_navgraph"), (D, "knn_graph"),
                 (G, "_nearest_hosts"), (G, "greedy_search_batch"))):
             seg = build_segment(x, params, device=device)
-        built = K.launch_counts()
-        launches["l2_tile"] = built["l2_tile"]
-        for name in OFF_PATH:
-            launches[name] = built[name]
+        built = take("3 build")
         bt, info = seg.build_times, seg.build_info
         for k, v in bt.items():
             print(f"  {k}: {v:.3f}")
@@ -363,21 +389,21 @@ def main() -> int:
         print(f"  memory_bytes {mem} of {params.budget.memory_bytes} "
               f"(Eq. 10); disk_bytes {disk} of {params.budget.disk_bytes}; "
               f"check_budget {seg.check_budget()}")
-        print(f"  l2_tile launches in the build: {launches['l2_tile']}, "
+        print(f"  l2_tile launches in the build: {built['l2_tile']}, "
               f"{L2.OPS['l2_tile']} operations (2·Q·N·D)")
         for path, (cnt, ops_, shapes) in sorted(sites.items()):
             top = sorted(shapes.items(), key=lambda kv: -kv[1])[:3]
             print(f"    in {path}: {cnt} launches, {ops_} operations, "
                   f"{len(shapes)} shapes; most launched "
                   f"{[(list(sh), k) for sh, k in top]}")
-        check(sum(v[0] for v in sites.values()) == launches["l2_tile"],
+        check(sum(v[0] for v in sites.values()) == built["l2_tile"],
               "l2_tile launches outside ops.pairwise_l2 in the build")
         seg.layout.validate()
         check_graph(seg.graph, "disk graph")
         check(mem <= params.budget.memory_bytes
               and disk <= params.budget.disk_bytes, "over the space budget")
         if on_card:
-            check(launches["l2_tile"] > 0, "the build launched no l2_tile")
+            check(built["l2_tile"] > 0, "the build launched no l2_tile")
         print(f"  graph: avg degree {seg.graph.avg_degree():.3f}, entry "
               f"{seg.entry}; nav graph {seg.nav_ids.shape[0]} vertices")
         t0 = time.perf_counter()
@@ -411,6 +437,7 @@ def main() -> int:
               f"OR(G) BNP {hv[0]:.4f} -> BNF {[round(h, 4) for h in hv[1:]]}")
         check_graph(gv, "vamana graph")
         del xv, gv
+        take("4 vamana")
 
     p = SERVE_DEVICE_SEARCH
     nq = BATCH
@@ -478,6 +505,12 @@ def main() -> int:
         want = ref.gather_unique_ref(uniq, *args_g)
         for name, g, w in zip(("tiles", "vid", "nbrs"), got, want):
             check(torch.equal(g, w), f"gather_unique {name} differs")
+
+        def three_selects():
+            """The library's copy: one index_select per store array."""
+            return tuple(torch.index_select(a, 0, uniq) for a in args_g)
+        check(all(torch.equal(g, w) for g, w in zip(three_selects(), want)),
+              "index_select does not compute the gather_unique function")
         kern["gather_unique"] = {
             "max_abs_err": 0.0,
             "bytes": r * 4 + ndist * payload + out_rows,
@@ -486,12 +519,13 @@ def main() -> int:
                           ITERS, flush),
             "plain_ms": time_ms(lambda: ref.gather_unique_ref(
                 uniq, *args_g), device, ITERS, flush),
-            "library_ms": None}
+            "library_ms": time_ms(three_selects, device, ITERS, flush)}
 
         hot = (ds.hot_slot_of, ds.hot_vecs, ds.hot_vid, ds.hot_nbrs)
         u_idle = u.clone()
         u_idle[-bq:] = -1                      # one all-idle tile too
         err = 0.0
+        rank_dd = []
         for case in (u, u_idle):
             rargs = (q0, case, rank2d, uniq, *hot, tv, ti, tn, n_expand)
             dd, vid, nbrs, hit, order = T0.fused_round_rank(*rargs, bq=bq)
@@ -506,6 +540,7 @@ def main() -> int:
             live = torch.repeat_interleave(
                 (case >= 0).reshape(-1, bq * fw).any(1), bq)
             own = torch.where(live[:, None], own, torch.zeros_like(own))
+            rank_dd.append((dd, live))
             check(torch.equal(order, own),
                   "fused_round_rank order is not the stable argsort of "
                   "its own selection key")
@@ -513,6 +548,7 @@ def main() -> int:
                   f"{float((order == w[4]).all(1).float().mean()):.4f} "
                   f"of rows; idle rows {int((~live).sum())}")
         rargs = (q0, u, rank2d, uniq, *hot, tv, ti, tn, n_expand)
+        rargs_idle = (q0, u_idle, rank2d, uniq, *hot, tv, ti, tn, n_expand)
         fe = fw * eps
         kern["fused_round_rank"] = {
             "max_abs_err": err,
@@ -534,6 +570,15 @@ def main() -> int:
         check(torch.equal(got_h, want_h), "tier0_fetch_rank hit differs")
         check(torch.allclose(got_d, want_d, atol=1e-4, rtol=1e-5),
               "tier0_fetch_rank dists outside atol 1e-4 / rtol 1e-5")
+        # one f32 order: on live rows the rank pass's distances are the
+        # probe's, bit for bit (the same queries and target blocks)
+        for dd, live in rank_dd:
+            check(torch.equal(dd[live].view(torch.int32),
+                              got_d[live].view(torch.int32)),
+                  "fused_round_rank dd is not tier0_fetch_rank's bit for bit")
+        print(f"  fused_round_rank dd equals tier0_fetch_rank's bit for bit "
+              f"on {int(rank_dd[0][1].sum())} and {int(rank_dd[1][1].sum())}"
+              f" live rows")
         kern["tier0_fetch_rank"] = {
             "max_abs_err": float((got_d - want_d).abs().max()),
             "bytes": (nq * DIM * 4 + 2 * r * 4 + ndist * eps * DIM * 4
@@ -676,11 +721,65 @@ def main() -> int:
                   f"{k['library_ms']} max_abs_err={k['max_abs_err']:.3e} "
                   f"bound_by={k['bound_by']}")
         print(f"  round inputs: R={r}, distinct={ndist}")
+        for name in REDESIGNED:
+            share = kern[name]["bound_ms"] / kern[name]["ms"]
+            print(f"  {name}: {share:.4f} of its byte bound")
+            check(0 < share <= 1, f"{name} beat its own bound: the byte "
+                  "count or the timing is wrong")
         print(f"  l2_tile at the kNN chunk: {kern['l2_tile']['bound_ms'] / kern['l2_tile']['ms']:.4f}"
               f" of its operation bound "
               f"({kern['l2_tile']['ops'] / kern['l2_tile']['ms'] / 1e9:.3f} "
               f"TFLOP/s f32 against {F32_OPS_PER_S / 1e12:.0f})")
+
+        # what the timing itself costs: an empty launch under the same
+        # protocol; and the round kernels with their inputs left in L2,
+        # as the round's previous kernel leaves them
+        floor = time_ms(lambda: torch.cuda._sleep(0), device, ITERS, flush) \
+            if on_card else float("nan")
+        print(f"  timing floor (an empty launch, L2 flushed): {floor:.6f} ms")
+        for name, fn in (
+                ("gather_union", lambda: T0.gather_union(b, *args_g)),
+                ("gather_unique", lambda: T0.gather_unique(uniq, *args_g)),
+                ("fused_round_rank", lambda: T0.fused_round_rank(
+                    *rargs, bq=bq)),
+                ("tier0_fetch_rank", lambda: T0.tier0_fetch_rank(*t0_args))):
+            print(f"  {name} with its inputs in L2: "
+                  f"{time_ms(fn, device, ITERS):.6f} ms")
+
+        if args.against:
+            # other builds of tier0_fetch.cu through the same wrappers:
+            # the same bits on the same inputs, timed in turns
+            runs = {"gather_union": lambda: T0.gather_union(b, *args_g),
+                    "gather_unique": lambda: T0.gather_unique(uniq, *args_g),
+                    "fused_round_rank": lambda: T0.fused_round_rank(
+                        *rargs, bq=bq),
+                    "fused_round_rank (idle tile)": lambda: T0.
+                    fused_round_rank(*rargs_idle, bq=bq),
+                    "tier0_fetch_rank": lambda: T0.tier0_fetch_rank(
+                        *t0_args)}
+
+            def bits(t):
+                return t.view(torch.int32) if t.is_floating_point() else t
+            for path in args.against:
+                other = _build.load_source("tier0_fetch", path)
+                for name, fn in runs.items():
+                    mine = fn()
+                    with _build.swapped("tier0_fetch", other):
+                        theirs = fn()
+                    check(all(torch.equal(bits(a), bits(o))
+                              for a, o in zip(mine, theirs)),
+                          f"{name} differs from {path}'s")
+                    turns = []
+                    for which in ("other", "this", "this", "other"):
+                        with (_build.swapped("tier0_fetch", other)
+                              if which == "other"
+                              else contextlib.nullcontext()):
+                            turns.append(time_ms(fn, device, ITERS, flush))
+                    print(f"  against {path}: {name} bit-identical; ms other "
+                          f"{turns[0]:.6f} this {turns[1]:.6f} this "
+                          f"{turns[2]:.6f} other {turns[3]:.6f}")
         del flush
+        K.reset_all_launches()          # phase 5's comparisons: not counted
 
     with phase("6 serve"):
         srv = SegmentServer(segment=ds, offset=0,
@@ -722,9 +821,9 @@ def main() -> int:
                   "returned distances are not the ids' exact distances")
 
         serve(batches[0], srv)                       # warm-up
+        take("6 warm-up")
         if on_card:
             torch.cuda.reset_peak_memory_stats(device)
-        K.reset_all_launches()
         rounds, served, lat, batch_st = [], [], [], []
         for i in range(1, BATCHES + 1):
             ids, dists, ms = serve(batches[i], srv)
@@ -737,11 +836,7 @@ def main() -> int:
                   f"rounds {st['rounds']}, io {st['io'].mean():.3f}, "
                   f"tier0_hits {st['tier0_hits'].mean():.3f}, "
                   f"dedup_saved {st['dedup_saved'].mean():.3f} per query")
-        served_launches = K.launch_counts()
-        for name in ("gather_union", "fused_round_rank"):
-            launches[name] = served_launches[name]
-        for name in OFF_PATH:
-            launches[name] += served_launches[name]
+        served_launches = take("6 served")
         print(f"  batch ms median {np.median(lat):.3f} max {max(lat):.3f}"
               f" ({BATCHES} batches); QPS at the median "
               f"{nq / np.median(lat) * 1e3:.1f}; ms per round "
@@ -768,17 +863,16 @@ def main() -> int:
                   and served_launches["fused_round_rank"] == sum(rounds),
                   "main-path launches do not follow the rounds")
 
+        take("6 oracle")
+
         # the two-pass union path on the next batch
         srv2 = dataclasses.replace(
             srv, params=dataclasses.replace(p, fuse_union=False))
         ids_f, _, _ = serve(batches[BATCHES + 1], srv)
-        K.reset_all_launches()
+        take("6 two-pass: the fused twin")
         ids_2, _, ms = serve(batches[BATCHES + 1], srv2)
         r2 = srv2.batch_stats()["rounds"]
-        two_pass = K.launch_counts()
-        launches["gather_unique"] = two_pass["gather_unique"]
-        for name in OFF_PATH:
-            launches[name] += two_pass[name]
+        two_pass = take("6 two-pass")
         print(f"  two-pass union batch: {ms:.3f} ms, rounds {r2}, "
               f"launches {two_pass}")
         check(np.array_equal(ids_f, ids_2),
@@ -788,7 +882,7 @@ def main() -> int:
                   and two_pass["gather_union"] == 0,
                   "two-pass launches do not follow the rounds")
         # pq_adc, tier0_fetch_rank and block_topk are the kernel API's
-        # entries (ops): the counts read over every path say whether one
+        # entries (ops): the counts over every phase say whether one
         # called them
 
     with phase("7 kernel path against plain path"):
@@ -821,6 +915,7 @@ def main() -> int:
               f"of queries")
         check(abs(rk - rr) <= 0.01, "kernel and plain recall differ "
               "by more than 0.01")
+        take("7 kernel path against plain path")
 
     with phase("8 profile one batch"):
         from torch.profiler import ProfilerActivity, profile
@@ -829,6 +924,7 @@ def main() -> int:
             acts.append(ProfilerActivity.CUDA)
         with profile(activities=acts) as prof:
             _, _, ms = serve(qb, srv)
+        take("8 profile")
         rows = prof.key_averages()
         busy_ms = sum(getattr(e, "self_device_time_total", 0)
                       for e in rows) / 1e3
@@ -850,12 +946,6 @@ def main() -> int:
     extra = [extra[i * nq:(i + 1) * nq]
              for i in range(RANGE_BATCHES + HYBRID_BATCHES + 1)]
 
-    def count_off_path():
-        got = K.launch_counts()
-        for name in OFF_PATH:
-            launches[name] += got[name]
-        return got
-
     with phase("9 range"):
         k_cap, rs_rounds = 256, 3
         q_r = torch.as_tensor(extra[0], device=device)
@@ -864,7 +954,7 @@ def main() -> int:
         radius = float(torch.median(d10))
         print(f"  radius {radius:.6f}: the median 10th-NN distance of the "
               f"first batch (l2_tile oracle)")
-        K.reset_all_launches()
+        take("9 radius")
         ranged, rs_total = [], 0
         for qb in extra[:RANGE_BATCHES]:
             qt = torch.as_tensor(qb, device=device)
@@ -880,7 +970,7 @@ def main() -> int:
                   f"{float(rr.io.float().mean()):.3f}, tier0_hits "
                   f"{float(rr.tier0_hits.float().mean()):.3f}, in range "
                   f"{float(rr.in_range.sum(1).float().mean()):.3f} per query")
-        rs_launch = count_off_path()
+        rs_launch = take("9 range")
         print(f"  launches {rs_launch}, rounds {rs_total}")
         if on_card:
             check(rs_launch["gather_union"] == rs_total > 0
@@ -925,6 +1015,7 @@ def main() -> int:
               f"Γ 64/128/256 {scratch}; ratio {io3 / io_scratch:.4f}")
         check(io3 < io_scratch, "range io is not below three from-scratch "
               "searches")
+        take("9 brute force and from-scratch searches")
 
     with phase("10 repack"):
         observed = {}
@@ -936,7 +1027,6 @@ def main() -> int:
                               num_vectors=seg.num_vectors, params=p,
                               device=args.device, host=seg)
         qb = extra[RANGE_BATCHES]
-        K.reset_all_launches()
         ids0, d0, _ = serve(qb, srv_h)
         st0 = srv_h.batch_stats()
         t0 = time.perf_counter()
@@ -948,7 +1038,7 @@ def main() -> int:
         check(changed > 0, "the repack changed no slot")
         ids1, d1, _ = serve(qb, srv_h)
         st1 = srv_h.batch_stats()
-        count_off_path()
+        take("10 repack")
         check_results(qb, ids0, d0)
         check(np.array_equal(ids0, ids1) and np.array_equal(d0, d1),
               "the repack changed the results")
@@ -968,7 +1058,6 @@ def main() -> int:
         del srv_h, new
 
     with phase("11 hybrid"):
-        K.reset_all_launches()
         sync(device)
         t0 = time.perf_counter()
         hot = build_hot_tier(seg, HotTierParams(), device=device)
@@ -1050,15 +1139,14 @@ def main() -> int:
               f"tombstones and inserts); {int(found.sum())} of "
               f"{SELF_QUERIES} inserted vectors found themselves, each "
               f"first at distance 0")
-        count_off_path()
+        take("11 hybrid")
 
     with phase("12 large batch"):
         # 4,096 queries: R = 8,192 union slots a round, past the 4,096 the
         # first port's one-CTA union sorted
-        K.reset_all_launches()
         ids_b, d_b, ms_b = serve(big, srv)
         st_b = srv.batch_stats()
-        got = count_off_path()
+        got = take("12 large batch")
         ids_r, d_r, ms_r = serve(big, srv_ref)
         check_results(big, ids_b, d_b)
         print(f"  {BIG_BATCH} queries: {ms_b:.3f} ms ({BIG_BATCH / ms_b * 1e3:.1f}"
@@ -1073,13 +1161,23 @@ def main() -> int:
             check(got["gather_union"] == st_b["rounds"] > 0
                   and got["fused_round_rank"] == st_b["rounds"],
                   "large-batch launches do not follow the rounds")
+        take("12 plain path and checks")
 
+    total = {name: sum(c[name] for c in by_phase.values())
+             for name in KERNELS}
+    print("launches by phase (phase 5's comparisons not counted):")
+    for window, counts in by_phase.items():
+        print(f"  {window}: " + (", ".join(
+            f"{name} {counts[name]}" for name in KERNELS if counts[name])
+            or "none"))
+    print("  total: " + ", ".join(f"{name} {total[name]}"
+                                  for name in KERNELS))
     out = []
     for name, (src, replaces) in KERNELS.items():
         k = kern[name]
         out.append({"name": name, "route": "cuda", "source": CSRC + src,
                     "replaces": replaces,
-                    "launches": launches[name],
+                    "launches": total[name],
                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                     "bound_by": k["bound_by"],

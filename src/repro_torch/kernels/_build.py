@@ -9,6 +9,7 @@ compiled or loaded when this module is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -57,25 +58,29 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+def _lib_path(name: str, src: Path = None) -> Path:
+    src = CSRC / f"{name}.cu" if src is None else src
+    tag = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                         ).hexdigest()
     return BUILD_DIR / f"lib{name}_{tag[:12]}.so"
 
 
-def build(names: List[str] = None) -> Dict[str, Path]:
+def build(names: List[str] = None,
+          sources: Dict[str, Path] = None) -> Dict[str, Path]:
     """Compile every named source that has no current library, one
-    ``nvcc`` per source, all started together. Returns the paths."""
+    ``nvcc`` per source, all started together (``sources`` maps a name
+    to another file than ``csrc/<name>.cu``). Returns the paths."""
     names = list(SIGNATURES) if names is None else names
+    srcs = {n: (sources or {}).get(n, CSRC / f"{n}.cu") for n in names}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = {n: _lib_path(n) for n in names}
+    todo = {n: _lib_path(n, srcs[n]) for n in names}
     procs = []
     for name, out in todo.items():
         if out.exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(srcs[name])]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []
@@ -83,7 +88,7 @@ def build(names: List[str] = None) -> Dict[str, Path]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            errors.append(f"nvcc failed on {name}.cu:\n{log.decode()}")
+            errors.append(f"nvcc failed on {srcs[name]}:\n{log.decode()}")
         else:
             os.replace(tmp, out)
     if errors:
@@ -91,17 +96,38 @@ def build(names: List[str] = None) -> Dict[str, Path]:
     return todo
 
 
+def _bind(name: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        path = build([name])[name]
-        lib = ctypes.CDLL(str(path))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _loaded[name] = lib
+        lib = _loaded[name] = _bind(name, build([name])[name])
     return lib
+
+
+def load_source(name: str, src) -> ctypes.CDLL:
+    """A library built from another copy of ``csrc/<name>.cu`` (an
+    earlier commit's, say) with the same flags, bound to the same C
+    signatures: ``swapped`` runs it through the same wrappers."""
+    return _bind(name, build([name], {name: Path(src)})[name])
+
+
+@contextlib.contextmanager
+def swapped(name: str, lib: ctypes.CDLL):
+    """Inside the block, ``load(name)`` returns ``lib``."""
+    saved = load(name)
+    _loaded[name] = lib
+    try:
+        yield
+    finally:
+        _loaded[name] = saved
 
 
 def check(code: int, what: str) -> None:

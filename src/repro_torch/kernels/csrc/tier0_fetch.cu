@@ -10,9 +10,12 @@
 //   t0_rank               <-  fused_round pass 2b (_rank_kernel)
 //   t0_fetch_rank         <-  tier0_fetch_rank (_probe_kernel)
 //
-// What bounds them on an H100 is bytes, not arithmetic: a round moves a
-// few MB of block payload (ε·D floats, ε ids, ε·Λ neighbour ids per block)
-// and computes Q·F·ε·D multiply-adds, some 10^2 operations per KB.
+// Their bound on an H100 is bytes, not arithmetic: a round moves a few MB
+// of block payload (ε·D floats, ε ids, ε·Λ neighbour ids per block) and
+// computes Q·F·ε·D multiply-adds, some 10^2 operations per KB. At a
+// round's sizes that is ~2-4 µs of HBM time, so what they take beyond it
+// is the launch and chains of dependent memory latencies, which the
+// designs below keep short.
 //
 //  * Union and copy (t0_gather_union), one launch. The TPU kernel uses an
 //    O(R^2) sort-free formulation because Mosaic has no sort. Here the keys
@@ -31,17 +34,30 @@
 //    L2. Keys must lie in [0, rho), as the serving path's do; one outside
 //    is clamped into range, so the kernel reads no memory outside the
 //    store (its outputs then need not equal the plain version's).
-//  * Gather (t0_gather, gather_unique). One CTA per union row copies the
-//    row's block with 16-byte loads and stores where the row is 16-byte
-//    aligned, so each distinct block is read from HBM once.
-//  * Rank. One CTA per query. The query's tile (bq rows) is idle when no
-//    row picked a candidate; then the CTA writes the sentinels and stops.
-//    Otherwise it probes the tier-0 map for each of its F union rows,
-//    reads the hot-pack tile or the cold copy (the hot pack is small
-//    enough to stay in the 50 MB L2), computes the F·ε distances one warp
-//    per slot with coalesced loads, and ranks the selection key by
-//    counting (stable: index breaks ties), which is exactly
-//    argsort(stable)[:n_expand].
+//  * Gather (t0_gather, gather_unique). A warp per union row, four rows a
+//    CTA, copies the row's block with the union kernel's row copy
+//    (warp_copy): the vectors, ids and neighbour rows laid end to end,
+//    eight moves a lane a pass, every load of a pass issued before its
+//    first store. A served row (192 + 6 + 36 moves) is one pass, so one
+//    memory round trip, where a CTA per row and one array after the other
+//    took three.
+//  * Rank. What bounds it on this card is latency, not bytes: a query's
+//    work is ~10 KB, and each query waits on a chain of dependent loads
+//    (u and rank2d -> uniq -> hot_slot_of -> the payload). One warp per
+//    query, four queries a CTA, no block barrier: the warp reads its
+//    row's u and rank2d together (the tile's u, with 16-byte loads and a
+//    ballot, only where the row itself picked nothing: 0.3-0.45 µs less
+//    than reading both), lanes 0..F-1 walk uniq -> hot_slot_of, and then
+//    every payload load is issued before any arithmetic or store: the
+//    first pass of the neighbour rows (F runs of ε·Λ words, 16-byte
+//    moves where aligned), the ε·F ids (one slot a lane), and the ε·D
+//    floats of 16 slots at a time (warp_dists). The 16 slots' partial
+//    sums meet by a reduce-scatter that adds the same pairs as the
+//    probe's butterfly, so the distances are its bits. The selection key
+//    goes through shared memory (one row of F·ε words a warp) and the
+//    stable rank is a count over it: fewer, plus equal with a lower
+//    index, which is exactly argsort(stable)[:n_expand]. An idle tile
+//    writes its sentinels with 16-byte stores.
 //  * Probe (tier0_fetch_rank). The rank pass's probe and distance without
 //    its broadcast and order: one CTA per (query, block) pair probes the
 //    tier-0 map, reads the hot-pack tile or the block's cold tile once,
@@ -60,32 +76,88 @@
 
 namespace {
 
+constexpr unsigned FULL = 0xffffffffu;
+
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// n words from src to dst by one warp: 16-byte moves where both rows are
-// 16-byte aligned, eight in flight per lane, else one word at a time.
-__device__ __forceinline__ void warp_copy(int* __restrict__ dst,
-                                          const int* __restrict__ src,
-                                          long n, int lane) {
-  if (n % 4 == 0 && ((reinterpret_cast<uintptr_t>(dst) |
-                      reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
-    const int4* s4 = reinterpret_cast<const int4*>(src);
-    int4* d4 = reinterpret_cast<int4*>(dst);
-    const long n4 = n / 4;
-    for (long i0 = lane; i0 < n4; i0 += 8 * 32) {
-      int4 v[8];
+// n words at a and b move as 16-byte words: both 16-byte aligned and n a
+// multiple of 4.
+__device__ __forceinline__ bool wide_ok(const void* a, const void* b,
+                                        long n) {
+  return n % 4 == 0 && ((reinterpret_cast<uintptr_t>(a) |
+                         reinterpret_cast<uintptr_t>(b)) & 15) == 0;
+}
+
+// Unit i of an array moved in 16-byte words (wide) or in single words
+// (carried in .x).
+__device__ __forceinline__ int4 load_unit(const int* __restrict__ src,
+                                          long i, bool wide) {
+  return wide ? reinterpret_cast<const int4*>(src)[i]
+              : make_int4(src[i], 0, 0, 0);
+}
+
+__device__ __forceinline__ void store_unit(int* __restrict__ dst, long i,
+                                           int4 v, bool wide) {
+  if (wide)
+    reinterpret_cast<int4*>(dst)[i] = v;
+  else
+    dst[i] = v.x;
+}
+
+// One block-store row by one warp: three int arrays (vectors, ids,
+// neighbour rows), each in 16-byte words where wide_ok, else in single
+// words. Their units are laid end to end and taken eight a lane a pass;
+// every load of a pass is issued before its first store, so a row of up
+// to 256 units costs one memory round trip.
+__device__ __forceinline__ void warp_copy(
+    int* __restrict__ d0, const int* __restrict__ s0, long n0,
+    int* __restrict__ d1, const int* __restrict__ s1, long n1,
+    int* __restrict__ d2, const int* __restrict__ s2, long n2, int lane) {
+  const bool w0 = wide_ok(d0, s0, n0), w1 = wide_ok(d1, s1, n1),
+             w2 = wide_ok(d2, s2, n2);
+  const long e0 = w0 ? n0 / 4 : n0;
+  const long e1 = e0 + (w1 ? n1 / 4 : n1);
+  const long total = e1 + (w2 ? n2 / 4 : n2);
+  for (long i0 = lane; i0 < total; i0 += 8 * 32) {
+    int4 v[8];
 #pragma unroll
-      for (int u = 0; u < 8; ++u)
-        if (i0 + 32 * u < n4) v[u] = s4[i0 + 32 * u];
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        if (i0 + 32 * u < n4) d4[i0 + 32 * u] = v[u];
+    for (int k = 0; k < 8; ++k) {
+      const long i = i0 + 32 * k;
+      if (i < e0)
+        v[k] = load_unit(s0, i, w0);
+      else if (i < e1)
+        v[k] = load_unit(s1, i - e0, w1);
+      else if (i < total)
+        v[k] = load_unit(s2, i - e1, w2);
     }
-  } else {
-    for (long i = lane; i < n; i += 32) dst[i] = src[i];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const long i = i0 + 32 * k;
+      if (i < e0)
+        store_unit(d0, i, v[k], w0);
+      else if (i < e1)
+        store_unit(d1, i - e0, v[k], w1);
+      else if (i < total)
+        store_unit(d2, i - e1, v[k], w2);
+    }
   }
+}
+
+// n copies of v from dst on, by one warp: single words up to the first
+// 16-byte boundary, 16-byte stores, single words after.
+__device__ __forceinline__ void warp_fill(int* __restrict__ dst, long n,
+                                          int v, int lane) {
+  long head = static_cast<long>(
+      (16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) >> 2;
+  head = head < n ? head : n;
+  if (lane < head) dst[lane] = v;
+  int4* d4 = reinterpret_cast<int4*>(dst + head);
+  const long n4 = (n - head) >> 2;
+  const int4 v4 = make_int4(v, v, v, v);
+  for (long i = lane; i < n4; i += 32) d4[i] = v4;
+  for (long i = head + 4 * n4 + lane; i < n; i += 32) dst[i] = v;
 }
 
 // ------------------------------------------------------------------ union
@@ -122,8 +194,8 @@ __global__ void mark_kernel(const int* __restrict__ b, int r, int rho,
 //              the group's popcounts, then the bit within the word),
 // so no CTA waits for another. A CTA takes a contiguous share of the
 // slots (their ranks) and of the union rows (uniq and the row's copy, a
-// warp per row, 16-byte moves); rows past the distinct count copy block
-// 0, as uniq holds 0 there.
+// warp per row, warp_copy); rows past the distinct count copy block 0,
+// as uniq holds 0 there.
 template <bool SMEM_BM>
 __global__ void __launch_bounds__(U_NT)
 union_gather_kernel(const int* __restrict__ b, int r, int rho,
@@ -208,167 +280,303 @@ union_gather_kernel(const int* __restrict__ b, int r, int rho,
     }
     if (lane == 0) uniq[j] = blk;
     warp_copy(reinterpret_cast<int*>(tv + j * vd),
-              reinterpret_cast<const int*>(vecs + blk * vd), vd, lane);
-    warp_copy(ti + static_cast<long>(j) * eps, vid + static_cast<long>(blk) * eps,
-              eps, lane);
-    warp_copy(tn + j * vl, nbrs + blk * vl, vl, lane);
+              reinterpret_cast<const int*>(vecs + blk * vd), vd,
+              ti + static_cast<long>(j) * eps,
+              vid + static_cast<long>(blk) * eps, eps, tn + j * vl,
+              nbrs + blk * vl, vl, lane);
   }
 }
 
 // ----------------------------------------------------------------- gather
 
-__device__ __forceinline__ void copy_words(int* __restrict__ dst,
-                                           const int* __restrict__ src,
-                                           int n) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  bool vec = (n % 4 == 0) &&
-             (((reinterpret_cast<uintptr_t>(dst) |
-                reinterpret_cast<uintptr_t>(src)) & 15) == 0);
-  if (vec) {
-    const int4* s4 = reinterpret_cast<const int4*>(src);
-    int4* d4 = reinterpret_cast<int4*>(dst);
-    for (int i = tid; i < n / 4; i += nt) d4[i] = s4[i];
-  } else {
-    for (int i = tid; i < n; i += nt) dst[i] = src[i];
-  }
-}
+constexpr int G_WARPS = 4;    // union rows (warps) a gather CTA
 
-__global__ void gather_kernel(const int* __restrict__ uniq, int rho,
-                              const float* __restrict__ vecs,
-                              const int* __restrict__ vid,
-                              const int* __restrict__ nbrs, int eps, int d,
-                              int lam, float* __restrict__ tv,
-                              int* __restrict__ ti, int* __restrict__ tn) {
-  const long row = blockIdx.x;
+__global__ void __launch_bounds__(G_WARPS * 32)
+gather_kernel(const int* __restrict__ uniq, int r, int rho,
+              const float* __restrict__ vecs, const int* __restrict__ vid,
+              const int* __restrict__ nbrs, int eps, int d, int lam,
+              float* __restrict__ tv, int* __restrict__ ti,
+              int* __restrict__ tn) {
+  const long row = static_cast<long>(blockIdx.x) * G_WARPS + (threadIdx.x >> 5);
+  if (row >= r) return;
   const long blk = clampi(uniq[row], 0, rho - 1);
   const long vd = static_cast<long>(eps) * d, vl = static_cast<long>(eps) * lam;
-  copy_words(reinterpret_cast<int*>(tv + row * vd),
-             reinterpret_cast<const int*>(vecs + blk * vd), static_cast<int>(vd));
-  copy_words(ti + row * eps, vid + blk * eps, eps);
-  copy_words(tn + row * vl, nbrs + blk * vl, static_cast<int>(vl));
+  warp_copy(reinterpret_cast<int*>(tv + row * vd),
+            reinterpret_cast<const int*>(vecs + blk * vd), vd,
+            ti + row * eps, vid + blk * eps, eps, tn + row * vl,
+            nbrs + blk * vl, vl, threadIdx.x & 31);
 }
 
 // --------------------------------------------------------------- distance
 
-// sum((t - q)^2), or -sum(q * t) for ip, of one d-float row, summed by
-// one warp: lane c takes columns c, c+32, ..., the partial sums meet by
-// xor shuffles, so every lane returns the total. The rank and the probe
-// kernels share it, so both give the same f32 sums.
-template <bool IP>
-__device__ __forceinline__ float warp_dist(const float* __restrict__ t,
-                                           const float* __restrict__ q,
-                                           int d, int lane) {
-  float acc = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    float x = t[c], y = q[c];
-    if (IP) {
-      acc = fmaf(x, y, acc);
-    } else {
-      float df = x - y;
-      acc = fmaf(df, df, acc);
+// The xor butterfly from offset OFF down, CNT slots a lane: while a lane
+// holds more than one slot, a step keeps half of them (the upper half
+// where lane & OFF) and adds the partner's partial of each; then the
+// plain steps. CNT and OFF are template constants, so every index into
+// acc is one and acc stays in registers (a loop over a run-time count
+// put it in local memory).
+template <int CNT, int OFF>
+__device__ __forceinline__ float reduce_scatter(float* acc, int lane) {
+  if constexpr (OFF == 0) {
+    return acc[0];
+  } else if constexpr (CNT > 1) {
+    const bool up = (lane & OFF) != 0;
+#pragma unroll
+    for (int k = 0; k < CNT / 2; ++k) {
+      const float give = up ? acc[k] : acc[k + CNT / 2];
+      const float keep = up ? acc[k + CNT / 2] : acc[k];
+      acc[k] = keep + __shfl_xor_sync(FULL, give, OFF);
     }
+    return reduce_scatter<CNT / 2, OFF / 2>(acc, lane);
+  } else {
+    acc[0] += __shfl_xor_sync(FULL, acc[0], OFF);
+    return reduce_scatter<1, OFF / 2>(acc, lane);
   }
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  return IP ? -acc : acc;
+}
+
+// Distances of ns <= SG slot rows t[0..ns) to the query q, d floats each,
+// by one warp, in one f32 order: lane c sums columns c, c+32, ... of a
+// slot with fmaf in ascending order (the loads of all SG slots and four
+// columns a lane in flight at once), then the lanes' partial sums meet in
+// the pairs of an xor butterfly with offsets 16, 8, 4, 2, 1. For SG > 1
+// the first log2(SG) steps halve the slots a lane holds (a reduce-
+// scatter: each sum is still a + b of the same two partials, and a + b is
+// b + a in IEEE f32), so slot k's total lands on the lanes with
+// lane >> (5 - log2 SG) == k; for SG = 1 every lane holds it. Returns the
+// lane's total: sum((t - q)^2), or -sum(q * t) for ip. The rank and the
+// probe kernels both use it, so both give the same bits.
+template <bool IP, int SG>
+__device__ __forceinline__ float warp_dists(const float* const* t, int ns,
+                                            const float* __restrict__ q,
+                                            int d, int lane) {
+  static_assert(SG >= 1 && SG <= 32 && (SG & (SG - 1)) == 0,
+                "SG: a power of two up to 32");
+  constexpr int CU = 4;                          // columns a lane a pass
+  float acc[SG];
+#pragma unroll
+  for (int k = 0; k < SG; ++k) acc[k] = 0.f;
+  for (int c0 = 0; c0 < d; c0 += 32 * CU) {
+    float qv[CU], x[SG][CU];
+#pragma unroll
+    for (int u = 0; u < CU; ++u) {
+      const int c = c0 + 32 * u + lane;
+      qv[u] = c < d ? q[c] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < SG; ++k)
+#pragma unroll
+      for (int u = 0; u < CU; ++u) {
+        const int c = c0 + 32 * u + lane;
+        x[k][u] = (k < ns && c < d) ? t[k][c] : 0.f;
+      }
+#pragma unroll
+    for (int k = 0; k < SG; ++k)
+#pragma unroll
+      for (int u = 0; u < CU; ++u) {
+        if (c0 + 32 * u + lane < d) {
+          if (IP) {
+            acc[k] = fmaf(x[k][u], qv[u], acc[k]);
+          } else {
+            const float df = x[k][u] - qv[u];
+            acc[k] = fmaf(df, df, acc[k]);
+          }
+        }
+      }
+  }
+  const float sum = reduce_scatter<SG, 16>(acc, lane);
+  return IP ? -sum : sum;
 }
 
 // ------------------------------------------------------------------- rank
 
+constexpr int R_WARPS = 4;    // queries (warps) a rank CTA
+constexpr int R_SG = 16;      // slots a distance pass takes
+constexpr int R_NB = 4;       // neighbour units a lane a pass
+static_assert(R_SG == 16, "rank_kernel reads slot k's total on lane 2k");
+
+// A lane's place in a row of runs laid end to end, n units a run: run j,
+// unit off. One division where it starts; a step moves 32 units on by
+// subtraction (once where a run is at least a warp long).
+struct RunPos {
+  int j, off;
+  __device__ __forceinline__ RunPos(int i, int n) : j(i / n), off(i % n) {}
+  __device__ __forceinline__ void step(int n) {
+    off += 32;
+    while (off >= n) {
+      off -= n;
+      ++j;
+    }
+  }
+};
+
+// The row of n words that block `ref` holds: a hot slot where ref >= 0,
+// else the cold copy's union row ~ref.
+template <typename T>
+__device__ __forceinline__ const T* run_src(int ref, const T* hot,
+                                            const T* cold, long n) {
+  return ref >= 0 ? hot + ref * n : cold + static_cast<long>(~ref) * n;
+}
+
+// Pass 2b, one warp per query row, R_WARPS rows a CTA; shared memory
+// holds a row of 2·F + F·ε words a warp (each block's source, the picked
+// ids, the selection key).
 template <bool IP>
-__global__ void rank_kernel(
+__global__ void __launch_bounds__(R_WARPS * 32) rank_kernel(
     const float* __restrict__ q, const int* __restrict__ u,
     const int* __restrict__ rank2d, const int* __restrict__ uniq, int r,
     const int* __restrict__ hot_slot_of, int rho,
     const float* __restrict__ hot_vecs, const int* __restrict__ hot_vid,
     const int* __restrict__ hot_nbrs, int h, const float* __restrict__ tv,
-    const int* __restrict__ ti, const int* __restrict__ tn, int f, int eps,
-    int d, int lam, int n_expand, int bq, float* __restrict__ dd_out,
-    int* __restrict__ vid_out, int* __restrict__ nbrs_out,
-    int* __restrict__ hit_out, int* __restrict__ ord_out) {
+    const int* __restrict__ ti, const int* __restrict__ tn, int qn, int f,
+    int eps, int d, int lam, int n_expand, int bq,
+    float* __restrict__ dd_out, int* __restrict__ vid_out,
+    int* __restrict__ nbrs_out, int* __restrict__ hit_out,
+    int* __restrict__ ord_out) {
   extern __shared__ int sm[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long qi = static_cast<long>(blockIdx.x) * R_WARPS + w;
+  if (qi >= qn) return;
   const int fe = f * eps;
-  float* key = reinterpret_cast<float*>(sm);      // [fe]
-  int* vsh = sm + fe;                             // [fe] vertex ids
-  int* hslot = vsh + fe;                          // [f] hot slot or -1
-  int* urow = hslot + f;                          // [f] union row
-  int* ush = urow + f;                            // [f] picked ids
-  const long qi = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  int* ref = sm + w * (2 * f + fe);                // [f] block source
+  int* uu = ref + f;                               // [f] picked ids
+  float* key = reinterpret_cast<float*>(uu + f);   // [fe] selection key
 
-  const long t0 = (qi / bq) * bq;
-  int live = 0;
-  for (int i = tid; i < bq * f; i += nt) live |= (u[t0 * f + i] >= 0);
-  live = __syncthreads_or(live);
-  if (!live) {                                    // all-idle tile
-    for (int s = tid; s < fe; s += nt) {
-      dd_out[qi * fe + s] = 0.f;
-      vid_out[qi * fe + s] = -1;
+  // the row's u and rank2d, in flight together; the tile's u only where
+  // the row itself picked nothing
+  const int* urow = u + qi * f;
+  const int* rrow = rank2d + qi * f;
+  int my_u = -1, my_r = 0;
+  if (lane < f) {
+    my_u = urow[lane];
+    my_r = rrow[lane];
+  }
+  const long t0 = (qi / bq) * bq * f, nt = static_cast<long>(bq) * f;
+  bool any = false;
+  if (__any_sync(FULL, my_u >= 0))
+    any = true;
+  else if (((t0 | nt) & 3) == 0 && (reinterpret_cast<uintptr_t>(u) & 15) == 0) {
+    const int4* u4 = reinterpret_cast<const int4*>(u + t0);
+#pragma unroll 4
+    for (long i = lane; i < nt / 4; i += 32) {
+      const int4 v = u4[i];
+      any |= (v.x >= 0) | (v.y >= 0) | (v.z >= 0) | (v.w >= 0);
     }
-    for (long i = tid; i < static_cast<long>(fe) * lam; i += nt)
-      nbrs_out[qi * fe * lam + i] = -1;
-    for (int j = tid; j < f; j += nt) hit_out[qi * f + j] = 0;
-    for (int j = tid; j < n_expand; j += nt) ord_out[qi * n_expand + j] = 0;
+  } else {
+#pragma unroll 4
+    for (long i = lane; i < nt; i += 32) any |= u[t0 + i] >= 0;
+  }
+  if (!__any_sync(FULL, any)) {                    // all-idle tile
+    warp_fill(reinterpret_cast<int*>(dd_out + qi * fe), fe, 0, lane);
+    warp_fill(vid_out + qi * fe, fe, -1, lane);
+    warp_fill(nbrs_out + qi * fe * lam, static_cast<long>(fe) * lam, -1,
+              lane);
+    warp_fill(hit_out + qi * f, f, 0, lane);
+    warp_fill(ord_out + qi * n_expand, n_expand, 0, lane);
     return;
   }
 
-  for (int j = tid; j < f; j += nt) {             // tier-0 probe
-    int rr = clampi(rank2d[qi * f + j], 0, r - 1);
-    int blk = clampi(uniq[rr], 0, rho - 1);
-    int hs = hot_slot_of[blk];
-    hslot[j] = hs >= 0 ? min(hs, h - 1) : -1;
-    urow[j] = rr;
-    ush[j] = u[qi * f + j];
+  // tier-0 probe: rank2d -> uniq -> hot_slot_of, a lane per block
+  for (int j = lane; j < f; j += 32) {
+    const int rr = clampi(j == lane ? my_r : rrow[j], 0, r - 1);
+    const int blk = clampi(uniq[rr], 0, rho - 1);
+    const int hs = hot_slot_of[blk];
+    ref[j] = hs >= 0 ? min(hs, h - 1) : ~rr;
+    uu[j] = j == lane ? my_u : urow[j];
     hit_out[qi * f + j] = hs >= 0 ? 1 : 0;
   }
-  __syncthreads();
+  __syncwarp();
 
-  for (int s = tid; s < fe; s += nt) {
-    int j = s / eps, e = s - j * eps, hs = hslot[j];
-    int v = hs >= 0 ? hot_vid[static_cast<long>(hs) * eps + e]
-                    : ti[static_cast<long>(urow[j]) * eps + e];
-    vsh[s] = v;
-    vid_out[qi * fe + s] = v;
+  // every payload load before any arithmetic or store: the first pass of
+  // the neighbour rows (F runs of ε·Λ words, laid end to end in the
+  // output row) ...
+  const long nl = static_cast<long>(eps) * lam;
+  int* nrow = nbrs_out + qi * fe * lam;
+  const bool nwide = nl % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(nbrs_out) |
+        reinterpret_cast<uintptr_t>(hot_nbrs) |
+        reinterpret_cast<uintptr_t>(tn)) & 15) == 0;
+  const int nu = static_cast<int>(nwide ? nl / 4 : nl);   // units a run
+  const long ntot = static_cast<long>(f) * nu;
+  RunPos np(lane, nu);
+  int4 nv[R_NB];
+#pragma unroll
+  for (int k = 0; k < R_NB; ++k) {
+    if (lane + 32 * k < ntot) {
+      nv[k] = load_unit(run_src(ref[np.j], hot_nbrs, tn, nl), np.off, nwide);
+      np.step(nu);
+    }
   }
-  for (long i = tid; i < static_cast<long>(fe) * lam; i += nt) {
-    int s = static_cast<int>(i / lam), c = static_cast<int>(i - static_cast<long>(s) * lam);
-    int j = s / eps, e = s - j * eps, hs = hslot[j];
-    const int* src = hs >= 0 ? hot_nbrs + (static_cast<long>(hs) * eps + e) * lam
-                             : tn + (static_cast<long>(urow[j]) * eps + e) * lam;
-    nbrs_out[qi * fe * lam + i] = src[c];
-  }
-
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  // ... the id of slot `lane` ...
+  RunPos vp(lane, eps);
+  int v0 = -1;
+  if (lane < fe) v0 = run_src(ref[vp.j], hot_vid, ti, eps)[vp.off];
+  // ... and the vectors, R_SG slots a pass
   const float* qrow = q + qi * d;
-  for (int s = warp; s < fe; s += nwarps) {
-    int j = s / eps, e = s - j * eps, hs = hslot[j];
-    const float* t = hs >= 0 ? hot_vecs + (static_cast<long>(hs) * eps + e) * d
-                             : tv + (static_cast<long>(urow[j]) * eps + e) * d;
-    float dist = warp_dist<IP>(t, qrow, d, lane);
-    if (lane == 0) {
+  int sj = 0, se = 0;                              // slot cursor: block, row
+  for (int s0 = 0; s0 < fe; s0 += R_SG) {
+    const float* t[R_SG];
+#pragma unroll
+    for (int k = 0; k < R_SG; ++k) {
+      t[k] = qrow;
+      if (s0 + k < fe) {
+        t[k] = run_src(ref[sj], hot_vecs, tv, static_cast<long>(eps) * d) +
+               static_cast<long>(se) * d;
+        if (++se == eps) {
+          se = 0;
+          ++sj;
+        }
+      }
+    }
+    const float dist = warp_dists<IP, R_SG>(t, fe - s0, qrow, d, lane);
+    const int s = s0 + (lane >> 1);                // on lanes 2k and 2k+1
+    if ((lane & 1) == 0 && s < fe) {
       dd_out[qi * fe + s] = dist;
       key[s] = dist;
     }
   }
-  __syncthreads();
 
-  // selection key: targets -inf, invalid slots +inf, else the distance
-  for (int s = tid; s < fe; s += nt) {
-    int v = vsh[s], j = s / eps;
+  // the neighbour rows' stores, then their passes left
+#pragma unroll
+  for (int k = 0; k < R_NB; ++k)
+    if (lane + 32 * k < ntot) store_unit(nrow, lane + 32 * k, nv[k], nwide);
+  for (long i0 = lane + 32 * R_NB; i0 < ntot; i0 += 32 * R_NB) {
+#pragma unroll
+    for (int k = 0; k < R_NB; ++k) {
+      if (i0 + 32 * k < ntot) {
+        nv[k] = load_unit(run_src(ref[np.j], hot_nbrs, tn, nl), np.off,
+                          nwide);
+        np.step(nu);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < R_NB; ++k)
+      if (i0 + 32 * k < ntot) store_unit(nrow, i0 + 32 * k, nv[k], nwide);
+  }
+  __syncwarp();                                    // key[] holds the distances
+
+  // ids out, and the selection key: targets -inf, invalid slots +inf,
+  // else the distance
+  for (int s = lane; s < fe; s += 32) {
+    int v = v0;
+    if (s != lane) {
+      vp.step(eps);
+      v = run_src(ref[vp.j], hot_vid, ti, eps)[vp.off];
+    }
+    vid_out[qi * fe + s] = v;
     bool target = false;
     if (v >= 0)
-      for (int jj = 0; jj < f; ++jj) target |= (v == ush[jj]);
-    bool valid = (v >= 0) && (ush[j] >= 0);
+      for (int jj = 0; jj < f; ++jj) target |= (v == uu[jj]);
+    const bool valid = (v >= 0) && (uu[vp.j] >= 0);
     key[s] = target ? -INFINITY : (valid ? key[s] : INFINITY);
   }
-  __syncthreads();
+  __syncwarp();
 
   // stable rank by counting: position = #smaller + #equal-before
-  for (int s = tid; s < fe; s += nt) {
-    float ks = key[s];
+  for (int s = lane; s < fe; s += 32) {
+    const float ks = key[s];
     int pos = 0;
     for (int t = 0; t < fe; ++t) {
-      float kt = key[t];
+      const float kt = key[t];
       pos += (kt < ks) || (kt == ks && t < s);
     }
     if (pos < n_expand) ord_out[qi * n_expand + pos] = s;
@@ -398,8 +606,8 @@ __global__ void probe_kernel(const float* __restrict__ q,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   for (int e = warp; e < eps; e += nwarps) {
-    float dist = warp_dist<IP>(tile + static_cast<long>(e) * d, q + qi * d,
-                               d, lane);
+    const float* row[1] = {tile + static_cast<long>(e) * d};
+    const float dist = warp_dists<IP, 1>(row, 1, q + qi * d, d, lane);
     if (lane == 0) dd_out[pair * eps + e] = dist;
   }
 }
@@ -481,17 +689,19 @@ int t0_gather_union(const int* b, int r, unsigned* bm, const float* vecs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// uniq [r] -> tiles [r, eps, d] f32, vid [r, eps] i32, nbrs [r, eps, lam] i32.
+// uniq [r] -> tiles [r, eps, d] f32, vid [r, eps] i32, nbrs [r, eps, lam]
+// i32: a warp per row, G_WARPS rows a CTA.
 int t0_gather(const int* uniq, int r, const float* vecs, const int* vid,
               const int* nbrs, int rho, int eps, int d, int lam, float* tv,
               int* ti, int* tn, void* stream) {
   if (r <= 0) return 0;
-  gather_kernel<<<r, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      uniq, rho, vecs, vid, nbrs, eps, d, lam, tv, ti, tn);
+  gather_kernel<<<(r + G_WARPS - 1) / G_WARPS, G_WARPS * 32, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      uniq, r, rho, vecs, vid, nbrs, eps, d, lam, tv, ti, tn);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Pass 2b of the round: one CTA per query row.
+// Pass 2b of the round: a warp per query row, R_WARPS rows a CTA.
 int t0_rank(const float* q, const int* u, const int* rank2d,
             const int* uniq, int r, const int* hot_slot_of, int rho,
             const float* hot_vecs, const int* hot_vid, const int* hot_nbrs,
@@ -500,19 +710,20 @@ int t0_rank(const float* q, const int* u, const int* rank2d,
             float* dd, int* vid, int* nbrs, int* hit, int* order,
             void* stream) {
   if (qn <= 0) return 0;
-  const int fe = f * eps;
-  size_t smem = static_cast<size_t>(2 * fe + 3 * f) * sizeof(int);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ip)
-    rank_kernel<true><<<qn, 128, smem, st>>>(
-        q, u, rank2d, uniq, r, hot_slot_of, rho, hot_vecs, hot_vid, hot_nbrs,
-        h, tv, ti, tn, f, eps, d, lam, n_expand, bq, dd, vid, nbrs, hit,
-        order);
-  else
-    rank_kernel<false><<<qn, 128, smem, st>>>(
-        q, u, rank2d, uniq, r, hot_slot_of, rho, hot_vecs, hot_vid, hot_nbrs,
-        h, tv, ti, tn, f, eps, d, lam, n_expand, bq, dd, vid, nbrs, hit,
-        order);
+  const size_t smem =
+      static_cast<size_t>(R_WARPS) * (2 * f + f * eps) * sizeof(int);
+  const int ctas = (qn + R_WARPS - 1) / R_WARPS;
+  auto kernel = ip ? rank_kernel<true> : rank_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<ctas, R_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, u, rank2d, uniq, r, hot_slot_of, rho, hot_vecs, hot_vid, hot_nbrs,
+      h, tv, ti, tn, qn, f, eps, d, lam, n_expand, bq, dd, vid, nbrs, hit,
+      order);
   return static_cast<int>(cudaGetLastError());
 }
 

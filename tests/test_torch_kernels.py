@@ -85,12 +85,18 @@ def _store(seed, rho=24, eps=4, d=16, lam=5):
     return vecs, vid, nbrs
 
 
-@pytest.mark.parametrize("qn,f,seed", [(16, 3, 7), (8, 1, 8), (37, 2, 9),
-                                       (2560, 2, 10)])   # R = 5,120
-def test_gather_union_and_unique_match_jax(qn, f, seed):
+@pytest.mark.parametrize("qn,f,seed,store", [
+    pytest.param(16, 3, 7, {}, id="16-3-7"),
+    pytest.param(8, 1, 8, {}, id="8-1-8"),
+    pytest.param(37, 2, 9, {}, id="37-2-9"),
+    pytest.param(2560, 2, 10, {}, id="2560-2-10"),      # R = 5,120
+    # rows of eps*D = 15 and eps*Lam = 9 words: the kernels' single-word
+    # copies
+    pytest.param(24, 3, 11, dict(eps=3, d=5, lam=3), id="odd-rows")])
+def test_gather_union_and_unique_match_jax(qn, f, seed, store):
     import jax.numpy as jnp
     from repro.kernels.tier0_fetch import gather_union, gather_unique
-    vecs, vid, nbrs = _store(seed)
+    vecs, vid, nbrs = _store(seed, **store)
     b = np.random.default_rng(seed).integers(0, vecs.shape[0], (qn, f)
                                              ).astype(np.int32)
     jstore = [jnp.asarray(a) for a in (vecs, vid, nbrs)]
@@ -137,12 +143,17 @@ def _round_case(q, rho, eps, d, f, hot_n, lam=5, seed=0, idle_rows=0):
 
 
 ROUND_CASES = {
-    # name: (q, rho, eps, d, f, hot_n, bq, idle_rows)
-    "one_tile": (16, 32, 4, 16, 1, 8, None, 0),
-    "ragged_no_hot": (37, 64, 8, 32, 2, 0, None, 0),
-    "wide_fetch": (8, 16, 6, 24, 3, 16, None, 0),
-    "idle_tile": (16, 32, 4, 16, 2, 8, 8, 8),
-    "part_idle_tile": (24, 32, 4, 16, 2, 8, 8, 5),
+    # name: (q, rho, eps, d, f, hot_n, bq, idle_rows, lam, n_expand)
+    "one_tile": (16, 32, 4, 16, 1, 8, None, 0, 5, 2),
+    "ragged_no_hot": (37, 64, 8, 32, 2, 0, None, 0, 5, 4),
+    "wide_fetch": (8, 16, 6, 24, 3, 16, None, 0, 5, 6),
+    "idle_tile": (16, 32, 4, 16, 2, 8, 8, 8, 5, 4),
+    "part_idle_tile": (24, 32, 4, 16, 2, 8, 8, 5, 5, 4),
+    # the rank kernel's edges: F*eps = 48 slots, past one warp's 32 lanes;
+    # D and Lam not multiples of 4 (single-word moves); every slot ordered
+    "slots_past_a_warp": (16, 40, 12, 16, 4, 10, 8, 0, 5, 8),
+    "ragged_d_lam": (16, 32, 4, 10, 2, 8, None, 0, 3, 4),
+    "n_expand_all_slots": (16, 32, 6, 16, 3, 8, None, 0, 5, 18),
 }
 
 
@@ -166,10 +177,9 @@ def _assert_no_near_ties(sel):
 def test_fused_round_matches_jax(case, metric):
     import jax.numpy as jnp
     from repro import kernels as JK
-    q, rho, eps, d, f, hot_n, bq, idle = ROUND_CASES[case]
-    args = _round_case(q, rho, eps, d, f, hot_n, seed=q * rho,
+    q, rho, eps, d, f, hot_n, bq, idle, lam, n_expand = ROUND_CASES[case]
+    args = _round_case(q, rho, eps, d, f, hot_n, lam=lam, seed=q * rho,
                        idle_rows=idle)
-    n_expand = f * 2
     want = [np.asarray(a) for a in JK.fused_round(
         *[jnp.asarray(a) for a in args], n_expand, metric=metric, bq=bq,
         fuse_union=True)]
@@ -434,13 +444,13 @@ def test_cuda_gather_union_any_r_and_rho(cuda, r, rho, eps, d, lam, lo, hi):
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("case", sorted(ROUND_CASES))
 def test_cuda_fused_round_matches_plain(cuda, case, metric):
-    q, rho, eps, d, f, hot_n, bq, idle = ROUND_CASES[case]
-    args = _round_case(q, rho, eps, d, f, hot_n, seed=q * rho,
+    q, rho, eps, d, f, hot_n, bq, idle, lam, n_expand = ROUND_CASES[case]
+    args = _round_case(q, rho, eps, d, f, hot_n, lam=lam, seed=q * rho,
                        idle_rows=idle)
     TT.reset_launches()
-    got = TO.fused_round(*_on(cuda, args), f * 2, metric=metric, bq=bq)
+    got = TO.fused_round(*_on(cuda, args), n_expand, metric=metric, bq=bq)
     torch.cuda.synchronize()
-    want = TO.fused_round(*[torch.as_tensor(a) for a in args], f * 2,
+    want = TO.fused_round(*[torch.as_tensor(a) for a in args], n_expand,
                           metric=metric, bq=bq)
     assert TT.LAUNCHES["fused_round_rank"] == 1
     for i in (1, 2, 3):
@@ -455,9 +465,32 @@ def test_cuda_fused_round_matches_plain(cuda, case, metric):
     live = np.repeat(np.pad(u, ((0, pad), (0, 0)), constant_values=-1)
                      .reshape(-1, bq * f).max(1) >= 0, bq)[:q]
     _, own = TR.selection_order(got[0].cpu(), got[1].cpu(),
-                                torch.as_tensor(u), f * 2)
+                                torch.as_tensor(u), n_expand)
     own = np.where(live[:, None], own.numpy(), 0)
     np.testing.assert_array_equal(got[4].cpu().numpy(), own)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_rank_dists_are_the_probe_bits(cuda, metric):
+    """At the served shape (1,024 queries, F = 2, eps = 6, D = 128,
+    Lam = 24, 500 of 5,000 blocks hot, the last tile idle): on live rows
+    ``fused_round_rank``'s dd equals ``tier0_fetch_rank``'s on the same
+    queries and target blocks bit for bit (one f32 order, warp_dists)."""
+    qs, u, block_of, slot_of, hv, hvid, hn, cold, vid, nbrs = _on(
+        cuda, _round_case(1024, 5000, 6, 128, 2, 500, lam=24, seed=15,
+                          idle_rows=TT.BQ))
+    b = block_of[u.long().clamp_min(0)]
+    uniq, rank2d, tv, ti, tn = TT.gather_union(b, cold, vid, nbrs)
+    dd = TT.fused_round_rank(qs, u, rank2d, uniq, slot_of, hv, hvid, hn,
+                             tv, ti, tn, 6, metric=metric)[0]
+    pd, _ = TT.tier0_fetch_rank(qs, b, slot_of, hv, cold, metric=metric)
+    torch.cuda.synchronize()
+    live = torch.repeat_interleave(
+        (u >= 0).reshape(-1, TT.BQ * 2).any(1), TT.BQ)
+    assert 0 < int(live.sum()) < 1024
+    assert torch.equal(dd[live].view(torch.int32),
+                       pd[live].view(torch.int32))
 
 
 @pytest.mark.gpu
