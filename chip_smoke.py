@@ -35,7 +35,8 @@ them:
      union); ``l2_tile`` on the build's kNN chunk, 2,048 of the
      vectors x all 1M (atol 1e-2 / rtol 1e-5), and the kNN ids of 4,096
      sampled vertices in such chunks; ``pq_adc`` on the segment's codes x
-     a 1,024-query batch's LUTs (rtol 1e-5); ``tier0_fetch_rank`` on the
+     a 1,024-query batch's LUTs, and at the host search's 1 query x 64
+     codes (equal: the same f32 order); ``tier0_fetch_rank`` on the
      first round's queries, target blocks, the 10% tier-0 pack and the
      cold store (hit equal, atol 1e-4 / rtol 1e-5); ``block_topk`` on
      the tiles of that round at top_m = n_expand and at the kernel
@@ -48,10 +49,12 @@ them:
      for bit; the shares of their bounds are printed, and each must lie
      in (0, 1]; the timing's floor (an empty launch) and the round
      kernels' times with their inputs in L2 are printed; with
-     ``--against`` other copies of ``tier0_fetch.cu`` (an earlier
-     commit's, variants) are built beside this one, their four kernels
-     must give the same bits on the same inputs, and each is timed in
-     turns with this one (other, this, this, other);
+     ``--against`` other copies of ``tier0_fetch.cu``, ``pq_adc.cu`` or
+     ``block_topk.cu`` (an earlier commit's, variants; the file name
+     starts with the source's) are built beside this one, their
+     kernels must give the same bits on the same inputs (``block_topk``
+     at both shapes, ``pq_adc`` at both), and each is timed in turns
+     with this one (other, this, this, other);
   6. serve: one warm-up batch, then 8 batches of 1,024 queries, k=10,
      with recall@10 against the brute-force oracle (``distances.
      brute_force_knn``, through ``l2_tile``; its ids equal the plain
@@ -137,7 +140,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                          "src/repro/kernels/tier0_fetch.py:444"),
     "block_topk": ("block_topk.cu", "src/repro/kernels/block_topk.py:51"),
 }
-REDESIGNED = ("fused_round_rank", "gather_unique")   # their bound shares
+REDESIGNED = ("fused_round_rank", "gather_unique", "pq_adc",
+              "block_topk")                # their bound shares
+ADC_HOST = 64          # the host search's ADC call: 1 query x 64 codes
 
 
 class SmokeFailure(Exception):
@@ -285,9 +290,11 @@ def main() -> int:
                     help="segment size; smaller only to rehearse")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--against", nargs="+", default=[],
-                    help="other copies of tier0_fetch.cu (an earlier "
-                         "commit's, variants) to build, hold bit for bit "
-                         "and time beside this one")
+                    help="other copies of tier0_fetch.cu, pq_adc.cu or "
+                         "block_topk.cu (an earlier commit's, variants; "
+                         "the file name starts with the source's) to "
+                         "build, hold bit for bit and time beside this "
+                         "one")
     args = ap.parse_args()
 
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
@@ -316,7 +323,7 @@ def main() -> int:
     from repro_torch.kernels import ops as KO
     from repro_torch.kernels import pq_adc as PQK
     from repro_torch.kernels import tier0_fetch as T0
-    from repro_torch.pq.pq import PQCodebook, adc_lut_batch
+    from repro_torch.pq.pq import lut_batch
     from repro_torch.serving.coordinator import SegmentServer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -681,13 +688,13 @@ def main() -> int:
 
         # pq_adc: the segment's codes against a 1,024-query batch's LUTs
         ql = torch.as_tensor(batches[0], device=device)
-        luts = adc_lut_batch(ql, PQCodebook(seg.pq_cent, DIM, seg.metric),
-                             device=device)
+        luts = lut_batch(ql, torch.as_tensor(seg.pq_cent, device=device),
+                         seg.metric)
         codes = ds.pq_codes
         got = PQK.pq_adc(codes, luts)
         want = ref.pq_adc_ref(luts, codes)
-        check(torch.allclose(got, want, rtol=1e-5, atol=0.0),
-              "pq_adc outside rtol 1e-5")
+        check(torch.equal(got, want), "pq_adc differs from its plain "
+              "version (the same f32 order: it must be equal)")
         m_sub, k_cent = luts.shape[1], luts.shape[2]
         # the library call: one embedding_bag, the LUTs as a [M*K, B]
         # table, each code row a bag of M offsets (out [N, B], the TPU
@@ -737,44 +744,98 @@ def main() -> int:
         floor = time_ms(lambda: torch.cuda._sleep(0), device, ITERS, flush) \
             if on_card else float("nan")
         print(f"  timing floor (an empty launch, L2 flushed): {floor:.6f} ms")
+        # pq_adc at the host search's shape (A3): one query's LUT against
+        # the codes of one hop's neighbours
+        codes_h = codes[:ADC_HOST].contiguous()
+        luts_h = luts[:1].contiguous()
+        check(torch.equal(PQK.pq_adc(codes_h, luts_h),
+                          ref.pq_adc_ref(luts_h, codes_h)),
+              "pq_adc differs from its plain version at 1 x 64")
+        host_bytes = ADC_HOST * m_sub + m_sub * k_cent * 4 + ADC_HOST * 4
+        print(f"  pq_adc at [1 x {ADC_HOST}] (the host search's call): "
+              f"{time_ms(lambda: PQK.pq_adc(codes_h, luts_h), device, ITERS, flush):.6f}"
+              f" ms against the floor {floor:.6f} ms (byte bound "
+              f"{host_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms)")
         for name, fn in (
                 ("gather_union", lambda: T0.gather_union(b, *args_g)),
                 ("gather_unique", lambda: T0.gather_unique(uniq, *args_g)),
                 ("fused_round_rank", lambda: T0.fused_round_rank(
                     *rargs, bq=bq)),
-                ("tier0_fetch_rank", lambda: T0.tier0_fetch_rank(*t0_args))):
+                ("tier0_fetch_rank", lambda: T0.tier0_fetch_rank(*t0_args)),
+                ("block_topk", lambda: BT.block_topk(q0, tiles_r, n_expand)),
+                (f"pq_adc [1 x {ADC_HOST}]", lambda: PQK.pq_adc(codes_h,
+                                                                luts_h))):
             print(f"  {name} with its inputs in L2: "
                   f"{time_ms(fn, device, ITERS):.6f} ms")
 
         if args.against:
-            # other builds of tier0_fetch.cu through the same wrappers:
-            # the same bits on the same inputs, timed in turns
-            runs = {"gather_union": lambda: T0.gather_union(b, *args_g),
-                    "gather_unique": lambda: T0.gather_unique(uniq, *args_g),
-                    "fused_round_rank": lambda: T0.fused_round_rank(
-                        *rargs, bq=bq),
-                    "fused_round_rank (idle tile)": lambda: T0.
-                    fused_round_rank(*rargs_idle, bq=bq),
-                    "tier0_fetch_rank": lambda: T0.tier0_fetch_rank(
-                        *t0_args)}
+            # other builds of the sources through the same wrappers: the
+            # same bits on the same inputs, timed in turns
+            runs = {"tier0_fetch": {
+                "gather_union": lambda: T0.gather_union(b, *args_g),
+                "gather_unique": lambda: T0.gather_unique(uniq, *args_g),
+                "fused_round_rank": lambda: T0.fused_round_rank(
+                    *rargs, bq=bq),
+                "fused_round_rank (idle tile)": lambda: T0.
+                fused_round_rank(*rargs_idle, bq=bq),
+                "tier0_fetch_rank": lambda: T0.tier0_fetch_rank(*t0_args)},
+                "pq_adc": {
+                "pq_adc": lambda: adc(codes, luts),
+                f"pq_adc [1 x {ADC_HOST}]": lambda: adc(codes_h, luts_h)},
+                "block_topk": {
+                f"block_topk [{nq} x {eps} x {DIM}] m={n_expand}":
+                lambda: BT.block_topk(q0, tiles_r, n_expand),
+                f"block_topk [128 x 16 x {DIM}] m=5":
+                lambda: BT.block_topk(q_m, t_m, 5)}}
+
+            legacy = []
+
+            def adc(c, lt):
+                """``PQK.pq_adc``; a copy of PR 15's pq_adc.cu (a CTA per
+                row tile x at most 8 queries) swapped in is called with
+                that PR's wrapper's query tile."""
+                lib = _build.load("pq_adc")
+                if not any(lib is x for x in legacy):
+                    return PQK.pq_adc(c, lt)
+                (n_, m_), (b_, _, k_) = c.shape, lt.shape
+                o = torch.empty((b_, n_), dtype=torch.float32, device=device)
+                _build.check(lib.pq_adc(
+                    c.data_ptr(), lt.data_ptr(), n_, m_, k_, b_,
+                    max(1, min(b_, 96 * 1024 // (m_ * k_ * 4), 8)),
+                    o.data_ptr(), _build.stream()), "pq_adc")
+                return o
 
             def bits(t):
-                return t.view(torch.int32) if t.is_floating_point() else t
+                t = t if isinstance(t, tuple) else (t,)
+                return [a.view(torch.int32) if a.is_floating_point() else a
+                        for a in t]
+
             for path in args.against:
-                other = _build.load_source("tier0_fetch", path)
-                for name, fn in runs.items():
+                name_src = next((n for n in runs
+                                 if os.path.basename(path).startswith(n)),
+                                None)
+                check(name_src is not None, f"--against {path}: the file "
+                      f"name starts with none of {sorted(runs)}")
+                other = _build.load_source(name_src, path)
+                if name_src == "pq_adc" and "ROWS_PER_CTA" in open(
+                        path).read():
+                    legacy.append(other)
+                for name, fn in runs[name_src].items():
                     mine = fn()
-                    with _build.swapped("tier0_fetch", other):
+                    with _build.swapped(name_src, other):
                         theirs = fn()
-                    check(all(torch.equal(bits(a), bits(o))
-                              for a, o in zip(mine, theirs)),
+                    check(all(torch.equal(a, o)
+                              for a, o in zip(bits(mine), bits(theirs))),
                           f"{name} differs from {path}'s")
                     turns = []
                     for which in ("other", "this", "this", "other"):
-                        with (_build.swapped("tier0_fetch", other)
+                        with (_build.swapped(name_src, other)
                               if which == "other"
                               else contextlib.nullcontext()):
-                            turns.append(time_ms(fn, device, ITERS, flush))
+                            turns.append(time_ms(
+                                fn, device,
+                                big_iters if name == "pq_adc" else ITERS,
+                                flush))
                     print(f"  against {path}: {name} bit-identical; ms other "
                           f"{turns[0]:.6f} this {turns[1]:.6f} this "
                           f"{turns[2]:.6f} other {turns[3]:.6f}")

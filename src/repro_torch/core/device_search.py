@@ -170,7 +170,8 @@ def from_segment(seg, tier0_blocks: Optional[int] = None,
         pq_codes=put(seg.pq_codes, torch.uint8),
         pq_cent=put(seg.pq_cent, f32), nav_vecs=put(seg.nav_vecs, f32),
         nav_adj=put(seg.nav_adj, i32), nav_ids=put(seg.nav_ids, i32),
-        nav_entry=put(np.int32(seg.nav_entry), i32),
+        nav_entry=torch.tensor(int(seg.nav_entry), dtype=i32,
+                               device=device),
         hot_vecs=put(hot_vecs, f32), hot_vid=put(hot_vid, i32),
         hot_nbrs=put(hot_nbrs, i32), hot_slot_of=put(slot_of, i32))
 
@@ -226,9 +227,15 @@ _adc_lut = lut_batch          # q [Q, D], cent [M, K, dsub] -> [Q, M, K]
 
 
 def _adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """lut [Q, M, K], codes [Q, I, M] -> [Q, I]."""
+    """lut [Q, M, K], codes [Q, I, M] -> [Q, I]. The M lookups are added
+    in order m = 0, 1, ..., the order of JAX's ``_adc`` on the CPU, so the
+    keys equal its bits (``torch.sum`` adds in another order)."""
     idx = codes.long().transpose(1, 2)                       # [Q, M, I]
-    return torch.gather(lut, 2, idx).sum(dim=1)
+    got = torch.gather(lut, 2, idx)
+    acc = got[:, 0]
+    for j in range(1, got.shape[1]):
+        acc = acc + got[:, j]
+    return acc
 
 
 def _merge_top(keys, ids, new_keys, new_ids, size: int, extra=None,

@@ -222,15 +222,15 @@ def build_segment(x: np.ndarray, params: SegmentParams,
     _stage(times, "memory_graph_s", t0, dev)
 
     t0 = time.perf_counter()
-    cent = train_pq(x, params.pq, device=dev)
-    codes = encode_pq(x, cent, device=dev)
+    cb = train_pq(x, params.pq, params.metric, device=dev)
+    codes = encode_pq(x, cb, device=dev)
     _stage(times, "pq_s", t0, dev)
 
     store = build_store(x, g, lay, params.layout.block_kb)
     return Segment(
         vid=store.vid, vecs=store.vecs, meta=store.meta, blocks=lay.blocks,
         block_of=lay.block_of, slot_of=lay.slot_of, adj=g.adj, deg=g.deg,
-        entry=int(g.entry), pq_codes=codes, pq_cent=cent,
+        entry=int(g.entry), pq_codes=codes, pq_cent=cb.centroids,
         nav_ids=nav.sample_ids, nav_adj=nav.graph.adj,
         nav_vecs=nav.vectors, nav_entry=int(nav.graph.entry),
         block_kb=float(params.layout.block_kb), metric=params.metric,

@@ -8,8 +8,8 @@ and each query's gathered block tiles [Q, eps, D] (f32), the distances
 distance, the lower slot first on ties. It replaces ``repro.kernels.
 block_topk.block_topk`` (``_rank_kernel``), the §5.1 block-search inner
 loop, and is the kernel API's ``ops.block_rank``; no path of the package
-calls it. One warp per query; bound by the bytes of the tiles, see the
-note at the top of the CUDA source.
+calls it. One warp per query, on registers only (any eps); bound by the
+bytes of the tiles, see the note at the top of the CUDA source.
 
 For ``top_m`` > eps it does what the TPU kernel does: every slot past
 the eps-th holds index 0 (the masked argmin of an all-masked row).
@@ -25,7 +25,6 @@ import torch
 from repro_torch.kernels import _build, ref
 
 LAUNCHES = {"block_topk": 0}
-SMEM_BYTES = 48 * 1024    # the CTA's four rows of eps distances
 
 
 def reset_launches() -> None:
@@ -49,9 +48,6 @@ def block_topk(queries: torch.Tensor, tiles: torch.Tensor, top_m: int,
     _build.require("block_topk", queries=(queries, torch.float32),
                    tiles=(tiles, torch.float32))
     qn, eps, d = tiles.shape
-    if 4 * eps * 4 > SMEM_BYTES:
-        raise ValueError(f"block_topk: {eps} slots exceed the "
-                         f"{SMEM_BYTES} B shared-memory rows")
     dists = torch.empty((qn, eps), dtype=torch.float32, device=tiles.device)
     idx = torch.empty((qn, top_m), dtype=torch.int32, device=tiles.device)
     lib = _build.load("block_topk")

@@ -5,8 +5,10 @@ and its wrapper.
 m]]`` for codes [N, M] u8 and LUTs [B, M, K] f32, as the [B, N] f32
 array of ``repro.kernels.ops.pq_adc_batch``. It replaces ``repro.
 kernels.pq_adc.pq_adc``: the TPU kernel's one-hot matmul becomes table
-lookups in shared memory. The kernel is bound by the bytes of its
-output, see the note at the top of the CUDA source.
+lookups in shared memory, the LUTs of 16 queries (8 or 4 where the
+batch is smaller or the tables larger) staged query-interleaved. The
+kernel is bound by the bytes of its output, see the note at the top of
+the CUDA source. M is one of ``M_SUPPORTED``.
 
 For CPU tensors the wrapper runs the plain version (``ref.pq_adc_ref``);
 for CUDA tensors it launches the kernel, or raises. Each launch adds one
@@ -19,11 +21,23 @@ import torch
 from repro_torch.kernels import _build, ref
 
 LAUNCHES = {"pq_adc": 0}
-SMEM_BYTES = 96 * 1024    # the LUT tile a CTA stages in shared memory
+SMEM_BYTES = 227 * 1024   # shared memory a CTA may hold on an H100
+M_SUPPORTED = (2, 4, 8, 16, 32)   # the kernel's instances
 
 
 def reset_launches() -> None:
     LAUNCHES["pq_adc"] = 0
+
+
+def tile_queries(m: int, k: int, b: int) -> int:
+    """The queries a CTA stages at once (16, 8 or 4): the fewest that
+    cover a batch of ``b`` below 16, and no more than fit the shared
+    memory (``bq·m·k·4`` bytes)."""
+    for bq in (16, 8, 4):
+        if bq * m * k * 4 <= SMEM_BYTES and (bq == 4 or b > bq // 2):
+            return bq
+    raise ValueError(f"pq_adc: the LUTs of 4 queries ({4 * m * k * 4} B) "
+                     f"exceed the {SMEM_BYTES} B of shared memory")
 
 
 def pq_adc(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
@@ -37,11 +51,9 @@ def pq_adc(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
                    luts=(luts, torch.float32))
     n, m = codes.shape
     b, _, k = luts.shape
-    table = m * k * 4
-    if table > SMEM_BYTES:
-        raise ValueError(f"pq_adc: one query's LUT ({table} B) exceeds the "
-                         f"{SMEM_BYTES} B shared-memory tile")
-    bq = max(1, min(b, SMEM_BYTES // table, 8))
+    if m not in M_SUPPORTED:
+        raise ValueError(f"pq_adc: M = {m} is not one of {M_SUPPORTED}")
+    bq = tile_queries(m, k, b)
     out = torch.empty((b, n), dtype=torch.float32, device=codes.device)
     lib = _build.load("pq_adc")
     _build.check(lib.pq_adc(codes.data_ptr(), luts.data_ptr(), n, m, k, b,

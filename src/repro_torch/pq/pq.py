@@ -1,8 +1,8 @@
 """Product quantization for memory-resident routing (torch port of
-``repro.pq.pq``).
+``repro.pq.pq``, with its signatures and return types).
 
-  train_pq     — per-subspace Lloyd k-means on a training sample; returns
-                 the centroids [M, K, dsub] (``PQCodebook`` wraps them)
+  train_pq     — per-subspace Lloyd k-means on a training sample ->
+                 ``PQCodebook``
   encode_pq    — [N, M] uint8 codes
   adc_lut      — per-query [M, K] lookup table of subspace distances
   adc_lut_batch — [Q, M, K] for a batch of queries (``lut_batch`` on
@@ -12,9 +12,11 @@
                  the card)
   reconstruct  — decode codes back to vectors
 
-The training sample and the initial centroids come from the same numpy
-generator calls as the JAX package, so for the same data and seed the
-codebooks agree to float tolerance and the codes are equal.
+Arrays go in and out as numpy, as in the JAX package; the work runs on
+``device`` (a trailing keyword, the card unless the caller names the
+CPU). The training sample and the initial centroids come from the same
+numpy generator calls as the JAX package, so for the same data and seed
+the codebooks agree to float tolerance and the codes are equal.
 """
 from __future__ import annotations
 
@@ -66,9 +68,9 @@ def _lloyd(x: torch.Tensor, init: torch.Tensor, iters: int) -> torch.Tensor:
     return cent
 
 
-def train_pq(x: np.ndarray, p: PQParams, device="cuda") -> np.ndarray:
-    """Per-subspace Lloyd k-means on a sample of ``x`` [N, D].
-    Returns the centroids [M, K, dsub] f32."""
+def train_pq(x: np.ndarray, p: PQParams, metric: str = "l2", *,
+             device="cuda") -> PQCodebook:
+    """Per-subspace Lloyd k-means on a sample of ``x`` [N, D]."""
     n, d = x.shape
     m = p.num_subspaces
     if d % m:
@@ -89,15 +91,15 @@ def train_pq(x: np.ndarray, p: PQParams, device="cuda") -> np.ndarray:
             reps = -(-p.num_centroids // k)
             c = np.tile(c, (reps, 1))[: p.num_centroids]
         cent[j] = c
-    return cent
+    return PQCodebook(centroids=cent, dim=d, metric=metric)
 
 
-def encode_pq(x, cent: np.ndarray, device="cuda",
-              chunk: int = 65536) -> np.ndarray:
-    """x [N, D] (numpy or tensor), cent [M, K, dsub] -> codes [N, M] u8."""
-    m, _, dsub = cent.shape
+def encode_pq(x, cb: PQCodebook, chunk: int = 65536, *,
+              device="cuda") -> np.ndarray:
+    """x [N, D] (numpy or tensor) -> codes [N, M] u8."""
+    m, _, dsub = cb.centroids.shape
     n = x.shape[0]
-    c = torch.as_tensor(cent, device=device)
+    c = torch.as_tensor(cb.centroids, device=device)
     cc = torch.sum(c * c, -1)[None]                          # [1, M, K]
     out = np.empty((n, m), np.uint8)
     for s in range(0, n, chunk):
@@ -115,33 +117,38 @@ def lut_batch(q: torch.Tensor, cent: torch.Tensor,
     """q [Q, D], cent [M, K, dsub] (one device) -> LUTs [Q, M, K] f32:
     each sub-vector's squared distance to each centroid (explicit
     difference), or the negated partial inner product for ``ip``
-    (summing stays "smaller is better")."""
+    (summing stays "smaller is better"). The dsub terms are added in
+    order, the order of the device search's ``_adc_lut`` in the JAX
+    package on the CPU, so the tables equal its bits."""
     m, _, dsub = cent.shape
     qs = q.reshape(q.shape[0], m, 1, dsub).to(torch.float32)
-    if metric == "ip":
-        return -torch.sum(cent[None] * qs, dim=-1)
-    return torch.sum(torch.square(cent[None] - qs), dim=-1)
+    terms = cent[None] * qs if metric == "ip" else torch.square(
+        cent[None] - qs)                                     # [Q, M, K, dsub]
+    acc = terms[..., 0]
+    for j in range(1, dsub):
+        acc = acc + terms[..., j]
+    return -acc if metric == "ip" else acc
 
 
-def adc_lut_batch(q, cb: PQCodebook, device="cuda") -> torch.Tensor:
-    """q [Q, D] (numpy or tensor) -> LUTs [Q, M, K] f32 on ``device``
-    (``lut_batch``)."""
-    qt = torch.as_tensor(np.asarray(q, np.float32) if isinstance(
-        q, np.ndarray) else q, device=device)
+def adc_lut_batch(q, cb: PQCodebook, *, device="cuda") -> np.ndarray:
+    """q [Q, D] -> LUTs [Q, M, K] f32 (``lut_batch`` on ``device``)."""
+    qt = torch.as_tensor(np.asarray(q, np.float32), device=device)
     return lut_batch(qt, torch.as_tensor(cb.centroids, device=device),
-                     cb.metric)
+                     cb.metric).cpu().numpy()
 
 
-def adc_lut(q, cb: PQCodebook, device="cuda") -> torch.Tensor:
+def adc_lut(q, cb: PQCodebook, *, device="cuda") -> np.ndarray:
     """One query [D] -> its LUT [M, K]."""
-    return adc_lut_batch(q.reshape(1, -1), cb, device=device)[0]
+    return adc_lut_batch(np.asarray(q).reshape(1, -1), cb,
+                         device=device)[0]
 
 
-def adc_distance(lut: torch.Tensor, codes) -> torch.Tensor:
+def adc_distance(lut, codes, *, device="cuda") -> np.ndarray:
     """lut [M, K], codes [n, M] -> [n] approximate distances, through
-    the ``pq_adc`` kernel (its plain version for CPU tensors)."""
-    codes = torch.as_tensor(codes, device=lut.device)
-    return ops.pq_adc_batch(codes, lut[None])[0]
+    the ``pq_adc`` kernel on ``device`` (its plain version on the CPU)."""
+    lt = torch.as_tensor(np.asarray(lut, np.float32), device=device)
+    ct = torch.as_tensor(np.asarray(codes, np.uint8), device=device)
+    return ops.pq_adc_batch(ct, lt[None])[0].cpu().numpy()
 
 
 def reconstruct(codes: np.ndarray, cb: PQCodebook) -> np.ndarray:

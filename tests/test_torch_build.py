@@ -264,6 +264,8 @@ def test_build_store_equals_jax(xi, jax_vamana):
 
 
 def test_adc_equals_jax():
+    """The JAX API on integer data (every f32 sum exact): numpy LUTs and
+    distances, equal to JAX's, for one query and for a batch."""
     rng = np.random.default_rng(4)
     cent = rng.integers(-4, 5, (4, 32, 4)).astype(np.float32)
     q = rng.integers(-4, 5, (9, 16)).astype(np.float32)
@@ -272,11 +274,15 @@ def test_adc_equals_jax():
         cbj = JPQ.PQCodebook(cent, 16, metric)
         cbt = TPQ.PQCodebook(cent, 16, metric)
         luts = JPQ.adc_lut_batch(q, cbj)
-        np.testing.assert_array_equal(
-            TPQ.adc_lut_batch(q, cbt, device=CPU).numpy(), luts)
-        np.testing.assert_array_equal(
-            TPQ.adc_distance(torch.as_tensor(luts[2]), codes).numpy(),
-            JPQ.adc_distance(luts[2], codes))
+        got = TPQ.adc_lut_batch(q, cbt, device=CPU)
+        assert isinstance(got, np.ndarray) and got.dtype == np.float32
+        np.testing.assert_array_equal(got, luts)
+        one = TPQ.adc_lut(q[2], cbt, device=CPU)
+        assert isinstance(one, np.ndarray)
+        np.testing.assert_array_equal(one, JPQ.adc_lut(q[2], cbj))
+        dist = TPQ.adc_distance(luts[2], codes, device=CPU)
+        assert isinstance(dist, np.ndarray) and dist.shape == (50,)
+        np.testing.assert_array_equal(dist, JPQ.adc_distance(luts[2], codes))
     np.testing.assert_array_equal(TPQ.reconstruct(codes, cbt),
                                   JPQ.reconstruct(codes, cbj))
 

@@ -10,7 +10,7 @@ from repro_torch.core import layout as TL
 from repro_torch.core.params import PQParams
 from repro_torch.data.vectors import clustered_vectors, query_set
 from repro_torch.io import hotset as TH
-from repro_torch.pq.pq import encode_pq, train_pq
+from repro_torch.pq.pq import PQCodebook, encode_pq, train_pq
 
 
 @pytest.mark.parametrize("n,dim,clusters,seed", [(500, 16, 8, 0),
@@ -26,20 +26,29 @@ def test_vectors_identical_to_jax_package(n, dim, clusters, seed):
             JV.query_set(x, 24, in_db=in_db, seed=1))
 
 
-def test_pq_matches_jax():
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_pq_matches_jax(metric):
     """Same sample, same initial centroids, same Lloyd steps: codebooks
     agree to float tolerance (f32 matmuls sum in another order) and the
-    codes are equal."""
+    codes are equal. Both packages are called the JAX way (the metric
+    third, positional), the port with its trailing ``device``."""
     from repro.pq import pq as JPQ
     from repro.core.params import PQParams as JPQParams
     x = clustered_vectors(3000, 32, num_clusters=12, seed=2)
     kw = dict(num_subspaces=8, num_centroids=64, train_iters=6,
               train_sample=2048, seed=0)
-    cb = JPQ.train_pq(x, JPQParams(**kw))
-    cent = train_pq(x, PQParams(**kw), device="cpu")
-    np.testing.assert_allclose(cent, cb.centroids, rtol=1e-4, atol=1e-4)
-    np.testing.assert_array_equal(encode_pq(x, cent, device="cpu"),
-                                  JPQ.encode_pq(x, cb))
+    cb = JPQ.train_pq(x, JPQParams(**kw), metric)
+    tcb = train_pq(x, PQParams(**kw), metric, device="cpu")
+    assert isinstance(tcb, PQCodebook)
+    assert (tcb.dim, tcb.metric) == (cb.dim, cb.metric)
+    assert tcb.centroids.dtype == cb.centroids.dtype == np.float32
+    np.testing.assert_allclose(tcb.centroids, cb.centroids, rtol=1e-4,
+                               atol=1e-4)
+    codes = encode_pq(x, tcb, device="cpu")
+    assert codes.dtype == np.uint8
+    np.testing.assert_array_equal(codes, JPQ.encode_pq(x, cb))
+    np.testing.assert_array_equal(encode_pq(x, tcb, 1000, device="cpu"),
+                                  codes)
 
 
 def test_layout_and_store_copies_match_jax():

@@ -268,6 +268,23 @@ def test_pq_adc_batch_matches_jax(n, m, k, b):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("m,k,b,bq", [(8, 256, 1024, 16), (8, 256, 9, 16),
+                                      (8, 256, 8, 8), (8, 256, 5, 8),
+                                      (8, 256, 4, 4), (8, 256, 1, 4),
+                                      (16, 256, 100, 8), (32, 256, 100, 4),
+                                      (4, 16, 3, 4)])
+def test_pq_adc_query_tile(m, k, b, bq):
+    """The CUDA wrapper's LUT tile: 16 queries where they fit in shared
+    memory and the batch fills them, else 8 or 4."""
+    assert TPQ.tile_queries(m, k, b) == bq
+    assert bq * m * k * 4 <= TPQ.SMEM_BYTES
+
+
+def test_pq_adc_query_tile_too_large():
+    with pytest.raises(ValueError):
+        TPQ.tile_queries(64, 256, 16)
+
+
 # the JAX sweeps' cases (tests/test_kernels.py): hot_n = 0 is the
 # sentinel pack (all cold), hot_n = rho packs every block
 T0_CASES = [(16, 32, 4, 16, 1, 8), (37, 64, 8, 32, 2, 0),
@@ -524,13 +541,18 @@ def test_cuda_l2_tile_matches_plain(cuda, q, n, d, dtype, metric):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,m,k,b", [(64, 4, 16, 1), (133, 8, 256, 5),
-                                     (17, 2, 64, 2), (10000, 8, 256, 37),
-                                     (5000, 16, 256, 9)])
+@pytest.mark.parametrize("n,m,k,b", [
+    (64, 4, 16, 1), (133, 8, 256, 5), (17, 2, 64, 2), (10000, 8, 256, 37),
+    (5000, 16, 256, 9), (1001, 8, 16, 7), (77, 4, 256, 18),
+    (4099, 16, 16, 3), (64, 8, 256, 1), (33, 8, 256, 1030),
+    (70, 16, 20, 21), (99, 32, 256, 3)])
 def test_cuda_pq_adc_matches_plain(cuda, n, m, k, b):
-    """The kernel sums over m in the plain version's order: equal."""
+    """The kernel sums over m in the plain version's order: the same
+    bits, at ragged N (not a multiple of a warp's 32 rows), B (not a
+    multiple of 4 or of the 16-query tile), K below 256 with code bytes
+    at or above K (clamped to K - 1), and every query tile (16, 8, 4)."""
     rng = np.random.default_rng(n * m)
-    codes = torch.as_tensor(rng.integers(0, k, (n, m)).astype(np.uint8),
+    codes = torch.as_tensor(rng.integers(0, 256, (n, m)).astype(np.uint8),
                             device=cuda)
     luts = torch.as_tensor(rng.standard_normal((b, m, k)).astype(np.float32),
                            device=cuda)
@@ -538,8 +560,20 @@ def test_cuda_pq_adc_matches_plain(cuda, n, m, k, b):
     got = TPQ.pq_adc(codes, luts)
     torch.cuda.synchronize()
     assert TPQ.LAUNCHES["pq_adc"] == 1
-    torch.testing.assert_close(got, TR.pq_adc_ref(luts, codes), rtol=1e-6,
-                               atol=0)
+    want = TR.pq_adc_ref(luts, codes)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_pq_adc_rejects_what_it_has_no_instance_for(cuda):
+    """M outside the kernel's instances, or LUTs past shared memory,
+    raise before a launch."""
+    codes = torch.zeros((8, 6), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        TPQ.pq_adc(codes, torch.zeros((2, 6, 16), device=cuda))
+    codes = torch.zeros((8, 32), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        TPQ.pq_adc(codes, torch.zeros((2, 32, 512), device=cuda))
 
 
 @pytest.mark.gpu
@@ -561,13 +595,15 @@ def test_cuda_tier0_fetch_rank_matches_plain(cuda, case, metric):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-@pytest.mark.parametrize("q,eps,d,top", BT_CASES + [(1024, 6, 128, 6),
-                                                    (128, 16, 128, 5),
-                                                    (33, 40, 100, 41)])
+@pytest.mark.parametrize("q,eps,d,top", BT_CASES + [
+    (1024, 6, 128, 6), (128, 16, 128, 5), (33, 40, 100, 41),
+    (9, 1, 128, 3), (64, 6, 128, 9), (17, 31, 40, 33), (11, 33, 24, 35),
+    (5, 48, 20, 50)])
 def test_cuda_block_topk_matches_plain(cuda, q, eps, d, top, metric):
     """Distances within atol 1e-3 / rtol 1e-5 of the plain norm
     expansion; the slots are the stable argsort of the kernel's own
-    distances (the masked argmin), 0 past eps."""
+    distances (the masked argmin), 0 past eps; eps from 1 to 48 (one
+    slot a lane, then passes of 32), top_m past eps."""
     qs, tiles = _on(cuda, _bt_case(q, eps, d))
     TBT.reset_launches()
     got_d, got_i = TO.block_rank(qs, tiles, top, metric=metric)
