@@ -38,7 +38,8 @@ them:
      a 1,024-query batch's LUTs, and at the host search's 1 query x 64
      codes (equal: the same f32 order); ``tier0_fetch_rank`` on the
      first round's queries, target blocks, the 10% tier-0 pack and the
-     cold store (hit equal, atol 1e-4 / rtol 1e-5); ``block_topk`` on
+     cold store, and at 128 queries x 16 seeded target blocks (hit
+     equal, atol 1e-4 / rtol 1e-5); ``block_topk`` on
      the tiles of that round at top_m = n_expand and at the kernel
      micro-bench's [128, 16, 128], m = 5 (atol 1e-3 / rtol 1e-5, the
      slots the stable order of its own distances) — each timed with CUDA
@@ -46,21 +47,32 @@ them:
      computes the same function (``torch.unique``, three
      ``index_select``, ``torch.cdist``, ``embedding_bag``); on live rows
      ``fused_round_rank``'s distances equal ``tier0_fetch_rank``'s bit
-     for bit; the shares of their bounds are printed, and each must lie
-     in (0, 1]; the timing's floor (an empty launch) and the round
+     for bit; every kernel's share of its bound is printed, and each must
+     lie in (0, 1]; the timing's floor (an empty launch) and the round
      kernels' times with their inputs in L2 are printed; with
      ``--against`` other copies of ``tier0_fetch.cu``, ``pq_adc.cu`` or
      ``block_topk.cu`` (an earlier commit's, variants; the file name
      starts with the source's) are built beside this one, their
      kernels must give the same bits on the same inputs (``block_topk``
-     at both shapes, ``pq_adc`` at both), and each is timed in turns
-     with this one (other, this, this, other);
+     and ``tier0_fetch_rank`` at both shapes, ``pq_adc`` at both), and
+     each is timed in turns with this one (other, this, this, other),
+     with the L2 flushed and then with the inputs left in it;
   6. serve: one warm-up batch, then 8 batches of 1,024 queries, k=10,
      with recall@10 against the brute-force oracle (``distances.
      brute_force_knn``, through ``l2_tile``; its ids equal the plain
      oracle's on the check batch) and the launch counts (which must
-     follow the rounds); then one batch on the two-pass union path
-     (``fuse_union=False``, which runs ``gather_unique``);
+     follow the rounds); each batch's ``batch_stats`` folded into one
+     ``IOStats`` (``core.iostats.IOStats.from_device_batch``, as the
+     JAX package's scheduler folds them) and the 8 folds merged; then
+     one batch on the two-pass union path (``fuse_union=False``, which
+     runs ``gather_unique``), and the first batch again with
+     ``trace_rounds``: its ids and fold equal the untraced run's, and its
+     round log (``obs.roundlog.fold_round_log``) ties to the fold:
+     ``sum(live) == hops``, ``sum(cold) == io``, ``sum(tier0) ==
+     tier0_hits``, ``sum(joins) == dedup_saved``, ``sum(joins_x) ==
+     dedup_cross``, the spec columns to theirs, the records to
+     ``batch_rounds`` and ``sum(live) / rounds`` to
+     ``rounds_active_weight``;
   7. kernel path against plain path: one batch with ``fetch_impl="ref"``
      (recall within ±0.01 of the kernel path);
   8. profile: one batch under ``torch.profiler`` — device busy time, the
@@ -106,6 +118,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -140,9 +153,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                          "src/repro/kernels/tier0_fetch.py:444"),
     "block_topk": ("block_topk.cu", "src/repro/kernels/block_topk.py:51"),
 }
-REDESIGNED = ("fused_round_rank", "gather_unique", "pq_adc",
-              "block_topk")                # their bound shares
 ADC_HOST = 64          # the host search's ADC call: 1 query x 64 codes
+WIDE_Q, WIDE_F = 128, 16   # tier0_fetch_rank's wide shape: F·ε = 96 slots
 
 
 class SmokeFailure(Exception):
@@ -203,6 +215,17 @@ def time_ms(fn, device, iters: int, flush=None) -> float:
         pairs.append((e0, e1))
     torch.cuda.synchronize(device)
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def fold_batch(bs: dict, iostats):
+    """One served batch's ``batch_stats`` folded into one ``IOStats``
+    (``iostats``: the port's ``core.iostats`` module), as the JAX
+    package's ``RepackScheduler.note_batch`` folds a target's columns."""
+    return iostats.IOStats.from_device_batch(
+        bs["io"], bs["tier0_hits"], bs["hops"], bs["dedup_saved"],
+        bs["rounds"], bs["dedup_cross"], bs["dma_pipelined"],
+        bs["spec_hits"], bs["spec_wasted"], bs["dma_speculative"],
+        bs["hot_tier_hits"])
 
 
 def recall(pred: np.ndarray, truth: np.ndarray) -> float:
@@ -310,6 +333,7 @@ def main() -> int:
     from repro_torch.core import device_search as DS
     from repro_torch.core import distances as D
     from repro_torch.core import graph as G
+    from repro_torch.core import iostats as IO
     from repro_torch.core import layout as L
     from repro_torch.core import navgraph as NG
     from repro_torch.core.params import (SEGMENT_BENCH_DEVICE,
@@ -323,6 +347,7 @@ def main() -> int:
     from repro_torch.kernels import ops as KO
     from repro_torch.kernels import pq_adc as PQK
     from repro_torch.kernels import tier0_fetch as T0
+    from repro_torch.obs import fold_round_log, round_log_totals
     from repro_torch.pq.pq import lut_batch
     from repro_torch.serving.coordinator import SegmentServer
 
@@ -397,7 +422,7 @@ def main() -> int:
               f"(Eq. 10); disk_bytes {disk} of {params.budget.disk_bytes}; "
               f"check_budget {seg.check_budget()}")
         print(f"  l2_tile launches in the build: {built['l2_tile']}, "
-              f"{L2.OPS['l2_tile']} operations (2·Q·N·D)")
+              f"{sum(v[1] for v in sites.values())} operations (2·Q·N·D)")
         for path, (cnt, ops_, shapes) in sorted(sites.items()):
             top = sorted(shapes.items(), key=lambda kv: -kv[1])[:3]
             print(f"    in {path}: {cnt} launches, {ops_} operations, "
@@ -597,6 +622,26 @@ def main() -> int:
                                 device, ITERS, flush),
             "library_ms": None}
         print(f"  tier0_fetch_rank: {int(got_h.sum())} of {r} targets hot")
+        # and at a wide round: 128 queries x 16 seeded target blocks
+        rng_w = torch.Generator(device="cpu").manual_seed(args.seed + 6)
+        b_w = torch.randint(0, seg.num_blocks, (WIDE_Q, WIDE_F),
+                            generator=rng_w, dtype=torch.int32).to(device)
+        t0_wide = (q0[:WIDE_Q].contiguous(), b_w, ds.hot_slot_of,
+                   ds.hot_vecs, ds.vecs)
+        got_d, got_h = T0.tier0_fetch_rank(*t0_wide)
+        want_d, want_h = ref.tier0_fetch_rank_ref(*t0_wide)
+        check(torch.equal(got_h, want_h) and torch.allclose(
+            got_d, want_d, atol=1e-4, rtol=1e-5), "tier0_fetch_rank at "
+            f"[{WIDE_Q} x {WIDE_F}] outside atol 1e-4 / rtol 1e-5 or hit "
+            "differs")
+        r_w = WIDE_Q * WIDE_F
+        wide_bytes = (WIDE_Q * DIM * 4 + 2 * r_w * 4 + int(torch.unique(
+            b_w).numel()) * eps * DIM * 4 + r_w * eps * 4 + r_w * 4)
+        print(f"  tier0_fetch_rank at [{WIDE_Q} x {WIDE_F}] (F·ε = "
+              f"{WIDE_F * eps}): within tolerance, {int(got_h.sum())} of "
+              f"{r_w} hot; "
+              f"{time_ms(lambda: T0.tier0_fetch_rank(*t0_wide), device, ITERS, flush):.6f}"
+              f" ms, byte bound {wide_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms")
 
         # block_topk on the tiles of that round (each query's first
         # target block) at top_m = n_expand, and at the kernel
@@ -728,15 +773,14 @@ def main() -> int:
                   f"{k['library_ms']} max_abs_err={k['max_abs_err']:.3e} "
                   f"bound_by={k['bound_by']}")
         print(f"  round inputs: R={r}, distinct={ndist}")
-        for name in REDESIGNED:
-            share = kern[name]["bound_ms"] / kern[name]["ms"]
-            print(f"  {name}: {share:.4f} of its byte bound")
-            check(0 < share <= 1, f"{name} beat its own bound: the byte "
+        for name, k in kern.items():
+            share = k["bound_ms"] / k["ms"]
+            print(f"  {name}: {share:.4f} of its bound ({k['bound_by']})")
+            check(0 < share <= 1, f"{name} beat its own bound: the "
                   "count or the timing is wrong")
-        print(f"  l2_tile at the kNN chunk: {kern['l2_tile']['bound_ms'] / kern['l2_tile']['ms']:.4f}"
-              f" of its operation bound "
-              f"({kern['l2_tile']['ops'] / kern['l2_tile']['ms'] / 1e9:.3f} "
-              f"TFLOP/s f32 against {F32_OPS_PER_S / 1e12:.0f})")
+        print(f"  l2_tile at the kNN chunk: "
+              f"{kern['l2_tile']['ops'] / kern['l2_tile']['ms'] / 1e9:.3f} "
+              f"TFLOP/s f32 against {F32_OPS_PER_S / 1e12:.0f}")
 
         # what the timing itself costs: an empty launch under the same
         # protocol; and the round kernels with their inputs left in L2,
@@ -762,6 +806,8 @@ def main() -> int:
                 ("fused_round_rank", lambda: T0.fused_round_rank(
                     *rargs, bq=bq)),
                 ("tier0_fetch_rank", lambda: T0.tier0_fetch_rank(*t0_args)),
+                (f"tier0_fetch_rank [{WIDE_Q} x {WIDE_F}]",
+                 lambda: T0.tier0_fetch_rank(*t0_wide)),
                 ("block_topk", lambda: BT.block_topk(q0, tiles_r, n_expand)),
                 (f"pq_adc [1 x {ADC_HOST}]", lambda: PQK.pq_adc(codes_h,
                                                                 luts_h))):
@@ -778,7 +824,9 @@ def main() -> int:
                     *rargs, bq=bq),
                 "fused_round_rank (idle tile)": lambda: T0.
                 fused_round_rank(*rargs_idle, bq=bq),
-                "tier0_fetch_rank": lambda: T0.tier0_fetch_rank(*t0_args)},
+                "tier0_fetch_rank": lambda: T0.tier0_fetch_rank(*t0_args),
+                f"tier0_fetch_rank [{WIDE_Q} x {WIDE_F}]": lambda: T0.
+                tier0_fetch_rank(*t0_wide)},
                 "pq_adc": {
                 "pq_adc": lambda: adc(codes, luts),
                 f"pq_adc [1 x {ADC_HOST}]": lambda: adc(codes_h, luts_h)},
@@ -828,17 +876,20 @@ def main() -> int:
                               for a, o in zip(bits(mine), bits(theirs))),
                           f"{name} differs from {path}'s")
                     turns = []
-                    for which in ("other", "this", "this", "other"):
-                        with (_build.swapped(name_src, other)
-                              if which == "other"
-                              else contextlib.nullcontext()):
-                            turns.append(time_ms(
-                                fn, device,
-                                big_iters if name == "pq_adc" else ITERS,
-                                flush))
+                    for fl in (flush, None):      # from HBM, then in L2
+                        for which in ("other", "this", "this", "other"):
+                            with (_build.swapped(name_src, other)
+                                  if which == "other"
+                                  else contextlib.nullcontext()):
+                                turns.append(time_ms(
+                                    fn, device,
+                                    big_iters if name == "pq_adc" else ITERS,
+                                    fl))
                     print(f"  against {path}: {name} bit-identical; ms other "
                           f"{turns[0]:.6f} this {turns[1]:.6f} this "
-                          f"{turns[2]:.6f} other {turns[3]:.6f}")
+                          f"{turns[2]:.6f} other {turns[3]:.6f}; inputs in "
+                          f"L2: other {turns[4]:.6f} this {turns[5]:.6f} "
+                          f"this {turns[6]:.6f} other {turns[7]:.6f}")
         del flush
         K.reset_all_launches()          # phase 5's comparisons: not counted
 
@@ -885,7 +936,7 @@ def main() -> int:
         take("6 warm-up")
         if on_card:
             torch.cuda.reset_peak_memory_stats(device)
-        rounds, served, lat, batch_st = [], [], [], []
+        rounds, served, lat, batch_st, folds = [], [], [], [], []
         for i in range(1, BATCHES + 1):
             ids, dists, ms = serve(batches[i], srv)
             st = srv.batch_stats()
@@ -893,11 +944,34 @@ def main() -> int:
             rounds.append(st["rounds"])
             served.append((ids, dists))
             lat.append(ms)
+            folds.append(fold_batch(st, IO))
             print(f"  batch {i}: {ms:.3f} ms, {nq / ms * 1e3:.1f} QPS, "
                   f"rounds {st['rounds']}, io {st['io'].mean():.3f}, "
                   f"tier0_hits {st['tier0_hits'].mean():.3f}, "
                   f"dedup_saved {st['dedup_saved'].mean():.3f} per query")
         served_launches = take("6 served")
+        for i, (st, fo) in enumerate(zip(batch_st, folds), start=1):
+            check(fo.block_reads == int(st["io"].sum() + st["tier0_hits"]
+                                        .sum())
+                  and fo.hops == int(st["hops"].sum())
+                  and fo.batch_rounds == st["rounds"],
+                  f"batch {i}'s IOStats fold does not hold its columns")
+            print(f"  batch {i} folded: block_reads {fo.block_reads}, "
+                  f"io_round_trips {fo.io_round_trips}, batch_rounds "
+                  f"{fo.batch_rounds}, rounds_active_weight "
+                  f"{fo.rounds_active_weight:.6f}")
+        merged = IO.IOStats()
+        for fo in folds:
+            merged.merge(fo)
+        print(f"  {BATCHES} batches folded and merged: block_reads "
+              f"{merged.block_reads}, io_round_trips "
+              f"{merged.io_round_trips}, tier0_hits {merged.tier0_hits}, "
+              f"dedup_saved_fetches {merged.dedup_saved_fetches}, "
+              f"dedup_cross_tile {merged.dedup_cross_tile}, hops "
+              f"{merged.hops}, batch_rounds {merged.batch_rounds} (the "
+              f"longest batch), rounds_active_weight (summed) "
+              f"{merged.rounds_active_weight:.6f}, dma_pipelined "
+              f"{merged.dma_pipelined}")
         print(f"  batch ms median {np.median(lat):.3f} max {max(lat):.3f}"
               f" ({BATCHES} batches); QPS at the median "
               f"{nq / np.median(lat) * 1e3:.1f}; ms per round "
@@ -942,6 +1016,47 @@ def main() -> int:
             check(two_pass["gather_unique"] == r2 > 0
                   and two_pass["gather_union"] == 0,
                   "two-pass launches do not follow the rounds")
+
+        # the first batch again with the round log on: the same ids and
+        # fold, and the log ties to the fold
+        srv_t = dataclasses.replace(
+            srv, params=dataclasses.replace(p, trace_rounds=True))
+        ids_t, _, _ = serve(batches[1], srv_t)
+        traced = take("6 traced batch")
+        st_t = srv_t.batch_stats()
+        fo_t = fold_batch(st_t, IO)
+        check(np.array_equal(ids_t, served[0][0])
+              and dataclasses.asdict(fo_t) == dataclasses.asdict(folds[0]),
+              "trace_rounds changed the ids or the counters")
+        recs = fold_round_log(srv_t.last_round_log, st_t["rounds"])
+        tot = round_log_totals(recs)
+        ties = {
+            "len(records) == batch_rounds": tot["rounds"] == fo_t.batch_rounds,
+            "sum(live) == hops": tot["hops"] == fo_t.hops,
+            "sum(cold) == io": tot["io"] == fo_t.cache_misses,
+            "sum(tier0) == tier0_hits": tot["tier0_hits"] == fo_t.tier0_hits,
+            "sum(joins) == dedup_saved":
+                tot["dedup_saved"] == fo_t.dedup_saved_fetches,
+            "sum(joins_x) == dedup_cross":
+                tot["dedup_cross"] == fo_t.dedup_cross_tile,
+            "sum(spec_hits) == spec_hits":
+                tot["spec_hits"] == int(st_t["spec_hits"].sum()),
+            "sum(spec_wasted) == spec_wasted":
+                tot["spec_wasted"] == fo_t.spec_wasted,
+            "sum(live) / rounds == rounds_active_weight": math.isclose(
+                tot["live_weight"] / max(tot["rounds"], 1),
+                fo_t.rounds_active_weight, rel_tol=1e-9)}
+        for what, ok in ties.items():
+            check(ok, f"round log: {what} does not hold")
+        print(f"  traced batch: ids and fold equal the untraced run's; "
+              f"{len(recs)} rounds, live {recs[0].live} -> {recs[-1].live},"
+              f" {tot['compactions']} compactions, cold {tot['io']}, tier0 "
+              f"{tot['tier0_hits']}, joins {tot['dedup_saved']} "
+              f"(cross-tile {tot['dedup_cross']}); {len(ties)} ties hold")
+        if on_card:
+            check(traced["gather_union"] == st_t["rounds"]
+                  and traced["fused_round_rank"] == st_t["rounds"],
+                  "traced-batch launches do not follow the rounds")
         # pq_adc, tier0_fetch_rank and block_topk are the kernel API's
         # entries (ops): the counts over every phase say whether one
         # called them

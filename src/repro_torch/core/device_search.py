@@ -36,7 +36,8 @@ from repro_torch import kernels as K
 from repro_torch.kernels import dedup, ref
 from repro_torch.pq.pq import lut_batch
 
-# per-round trace columns, equal to repro.core.device_search._ROUND_LOG_COLS
+# per-round trace columns: the import-free twin of obs.roundlog.ROUND_LOG_COLS
+# (the tests hold both equal to the JAX package's)
 _ROUND_LOG_COLS = ("live", "cold", "tier0", "joins", "joins_x",
                    "compacted", "spec_hits", "spec_wasted")
 

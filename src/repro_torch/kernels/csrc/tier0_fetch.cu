@@ -52,18 +52,24 @@
 //    first pass of the neighbour rows (F runs of ε·Λ words, 16-byte
 //    moves where aligned), the ε·F ids (one slot a lane), and the ε·D
 //    floats of 16 slots at a time (warp_dists). The 16 slots' partial
-//    sums meet by a reduce-scatter that adds the same pairs as the
-//    probe's butterfly, so the distances are its bits. The selection key
-//    goes through shared memory (one row of F·ε words a warp) and the
+//    sums meet by a reduce-scatter that adds the same pairs as a plain
+//    xor butterfly, so the distances are the probe's bits. The selection
+//    key goes through shared memory (one row of F·ε words a warp) and the
 //    stable rank is a count over it: fewer, plus equal with a lower
 //    index, which is exactly argsort(stable)[:n_expand]. An idle tile
 //    writes its sentinels with 16-byte stores.
 //  * Probe (tier0_fetch_rank). The rank pass's probe and distance without
-//    its broadcast and order: one CTA per (query, block) pair probes the
-//    tier-0 map, reads the hot-pack tile or the block's cold tile once,
-//    and writes its ε distances and the hit bit. Its traffic is the
-//    tiles of the named blocks, some 3 KB a pair; the launch dominates
-//    at the sizes a round gives it.
+//    its broadcast and order. Its traffic is the tiles of the named
+//    blocks, some 3 KB a (query, block) pair, so what bounds it is the
+//    chain blocks -> hot_slot_of -> the tile. A warp per pair, P_WARPS
+//    pairs a CTA, no shared memory and no barrier: every lane reads the
+//    pair's block id and its hot slot (one word each, the same for the
+//    warp), and then the loads of all of the block's ε rows (P_SG rows a
+//    pass, warp_dists) are in flight before any arithmetic; a served
+//    block (ε = 6) is one pass, so one chain of three dependent loads.
+//    No row couples the pairs (there is no order to rank), so a wide
+//    round gives more warps, not longer chains. The distances are the
+//    rank pass's bits: warp_dists adds the same pairs for any slot count.
 //
 // Every index read from an input is clamped into range, as the JAX
 // gathers clamp. Each entry point launches on the given stream and
@@ -585,30 +591,39 @@ __global__ void __launch_bounds__(R_WARPS * 32) rank_kernel(
 
 // ------------------------------------------------------------------ probe
 
-// One CTA per (query, block) pair; its warps take the block's slots in
-// turn. dd [Q, F*eps] row-major is pair * eps + slot.
+constexpr int P_WARPS = 4;    // (query, block) pairs (warps) a probe CTA
+constexpr int P_SG = 8;       // block rows a distance pass takes
+static_assert(P_SG == 8, "probe_kernel reads row k's total on lane 4k");
+
+// A warp per (query, block) pair, P_WARPS pairs a CTA. dd [Q, F*eps]
+// row-major is pair * eps + row; row k of a pass lands on lanes 4k..4k+3,
+// so lanes 0, 4, ... store the pass's rows side by side.
 template <bool IP>
-__global__ void probe_kernel(const float* __restrict__ q,
-                             const int* __restrict__ blocks, int f,
-                             const int* __restrict__ hot_slot_of, int rho,
-                             const float* __restrict__ hot_vecs, int h,
-                             const float* __restrict__ cold_vecs, int eps,
-                             int d, float* __restrict__ dd_out,
-                             int* __restrict__ hit_out) {
-  const long pair = blockIdx.x;
-  const long qi = pair / f;
+__global__ void __launch_bounds__(P_WARPS * 32) probe_kernel(
+    const float* __restrict__ q, const int* __restrict__ blocks, long pairs,
+    int f, const int* __restrict__ hot_slot_of, int rho,
+    const float* __restrict__ hot_vecs, int h,
+    const float* __restrict__ cold_vecs, int eps, int d,
+    float* __restrict__ dd_out, int* __restrict__ hit_out) {
+  const int lane = threadIdx.x & 31;
+  const long pair =
+      static_cast<long>(blockIdx.x) * P_WARPS + (threadIdx.x >> 5);
+  if (pair >= pairs) return;
+  const float* qrow = q + (pair / f) * d;
   const int blk = clampi(blocks[pair], 0, rho - 1);
   const int hs = hot_slot_of[blk];
   const long vd = static_cast<long>(eps) * d;
   const float* tile = hs >= 0 ? hot_vecs + min(hs, h - 1) * vd
                               : cold_vecs + blk * vd;
-  if (threadIdx.x == 0) hit_out[pair] = hs >= 0 ? 1 : 0;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int e = warp; e < eps; e += nwarps) {
-    const float* row[1] = {tile + static_cast<long>(e) * d};
-    const float dist = warp_dists<IP, 1>(row, 1, q + qi * d, d, lane);
-    if (lane == 0) dd_out[pair * eps + e] = dist;
+  if (lane == 0) hit_out[pair] = hs >= 0 ? 1 : 0;
+  for (int e0 = 0; e0 < eps; e0 += P_SG) {
+    const float* t[P_SG];
+#pragma unroll
+    for (int k = 0; k < P_SG; ++k)
+      t[k] = e0 + k < eps ? tile + static_cast<long>(e0 + k) * d : qrow;
+    const float dist = warp_dists<IP, P_SG>(t, eps - e0, qrow, d, lane);
+    const int e = e0 + (lane >> 2);
+    if ((lane & 3) == 0 && e < eps) dd_out[pair * eps + e] = dist;
   }
 }
 
@@ -728,22 +743,20 @@ int t0_rank(const float* q, const int* u, const int* rank2d,
 }
 
 // tier0_fetch_rank: queries [qn, d] x blocks [qn, f] -> dd [qn, f*eps]
-// f32, hit [qn, f] i32.
+// f32, hit [qn, f] i32: a warp per (query, block), P_WARPS a CTA.
 int t0_fetch_rank(const float* q, const int* blocks, int qn, int f,
                   const int* hot_slot_of, int rho, const float* hot_vecs,
                   int h, const float* cold_vecs, int eps, int d, int ip,
                   float* dd, int* hit, void* stream) {
   if (qn <= 0 || f <= 0) return 0;
-  const int pairs = qn * f;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ip)
-    probe_kernel<true><<<pairs, 128, 0, st>>>(
-        q, blocks, f, hot_slot_of, rho, hot_vecs, h, cold_vecs, eps, d, dd,
-        hit);
-  else
-    probe_kernel<false><<<pairs, 128, 0, st>>>(
-        q, blocks, f, hot_slot_of, rho, hot_vecs, h, cold_vecs, eps, d, dd,
-        hit);
+  const long pairs = static_cast<long>(qn) * f;
+  const long ctas = (pairs + P_WARPS - 1) / P_WARPS;
+  if (ctas > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = ip ? probe_kernel<true> : probe_kernel<false>;
+  kernel<<<static_cast<unsigned>(ctas), P_WARPS * 32, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      q, blocks, pairs, f, hot_slot_of, rho, hot_vecs, h, cold_vecs, eps, d,
+      dd, hit);
   return static_cast<int>(cudaGetLastError());
 }
 

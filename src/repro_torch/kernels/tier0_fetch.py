@@ -14,17 +14,17 @@ One search round, for the F candidates each query picked:
     ``gather_unique``.
   * ``fused_round_rank`` — pass 2b: tier-0 probe, hot/cold tile pick,
     broadcast through the rank map, exact distances and the stable
-    top-``n_expand`` expansion order, one CTA per query; an all-idle
+    top-``n_expand`` expansion order, one warp per query; an all-idle
     query tile writes sentinels. Replaces ``fused_round``'s
     ``_rank_kernel``.
 
 ``fused_round`` chains them as the JAX ``fused_round`` does.
 
-  * ``tier0_fetch_rank`` — the probe and the distances alone, one CTA
-    per (query, block): the fetch stage of the kernel API
+  * ``tier0_fetch_rank`` — the probe and the distances alone, one warp
+    per (query, block), four a CTA: the fetch stage of the kernel API
     (``ops.tier0_rank``), off the served path. Replaces
     ``tier0_fetch_rank`` (``_probe_kernel``) and shares the rank pass's
-    distance function.
+    distance function, so its distances are the rank pass's bits.
 
 Every
 wrapper runs its plain version (``kernels.ref``) when its tensors lie on

@@ -1,0 +1,9 @@
+"""repro_torch.obs — the port's observability plane. It holds the round
+log's fold (``roundlog``), the exact per-round refinement of
+``core.iostats.IOStats``."""
+from repro_torch.obs.roundlog import (N_ROUND_COLS, ROUND_LOG_COLS,
+                                      RoundRecord, fold_round_log,
+                                      round_log_totals)
+
+__all__ = ["N_ROUND_COLS", "ROUND_LOG_COLS", "RoundRecord",
+           "fold_round_log", "round_log_totals"]

@@ -30,7 +30,8 @@ def test_port_has_files():
         assert (pkg / "kernels" / "csrc" / src).exists()
     for mod in ("io/hottier.py", "kernels/block_topk.py",
                 "core/navgraph.py", "core/device_search.py",
-                "serving/coordinator.py"):
+                "serving/coordinator.py", "core/iostats.py",
+                "obs/__init__.py", "obs/roundlog.py"):
         assert pkg / mod in FILES
 
 

@@ -593,6 +593,46 @@ def test_cuda_tier0_fetch_rank_matches_plain(cuda, case, metric):
     torch.testing.assert_close(got_d, want_d, atol=1e-4, rtol=1e-5)
 
 
+# (F, eps, D): F*eps past 16 and 32 slots, eps past a pass of 8 rows, D
+# past 128 and not a multiple of it
+T0_SHAPES = [(f, eps, d) for f in (1, 2, 3, 8) for eps in (1, 6, 17, 33)
+             for d in (32, 96, 128, 200)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("pack", ["hot", "cold", "mixed"])
+def test_cuda_tier0_fetch_rank_any_shape(cuda, pack, metric):
+    """Every shape of ``T0_SHAPES`` with every block packed, none, or
+    half of them; the hot tiles differ from the cold ones (so a wrong pick
+    shows), one hot slot lies past the pack and a tenth of the block ids
+    outside [0, rho), all clamped as the plain version clamps: hit equal,
+    distances within atol 1e-4 / rtol 1e-5, one launch a call."""
+    qn, rho = 37, 50
+    hot_n = {"hot": rho, "cold": 0, "mixed": rho // 2}[pack]
+    for f, eps, d in T0_SHAPES:
+        rng = np.random.default_rng([f, eps, d])
+        qs = rng.standard_normal((qn, d)).astype(np.float32)
+        cold = rng.standard_normal((rho, eps, d)).astype(np.float32)
+        slot_of = np.full(rho, -1, np.int32)
+        slot_of[rng.permutation(rho)[:hot_n]] = np.arange(hot_n)
+        hot = rng.standard_normal((max(hot_n, 1), eps, d)).astype(np.float32)
+        if pack == "mixed":
+            slot_of[np.flatnonzero(slot_of < 0)[0]] = hot_n + 3
+        blocks = rng.integers(0, rho, (qn, f)).astype(np.int32)
+        out = rng.random((qn, f)) < 0.1
+        blocks[out] = rng.choice([-7, -1, rho, rho + 9], int(out.sum()))
+        arrays = _on(cuda, (qs, blocks, slot_of, hot, cold))
+        TT.reset_launches()
+        got_d, got_h = TT.tier0_fetch_rank(*arrays, metric=metric)
+        torch.cuda.synchronize()
+        assert TT.LAUNCHES["tier0_fetch_rank"] == 1
+        want_d, want_h = TR.tier0_fetch_rank_ref(*arrays, metric=metric)
+        assert torch.equal(got_h, want_h), (f, eps, d)
+        torch.testing.assert_close(got_d, want_d, atol=1e-4, rtol=1e-5,
+                                   msg=lambda m: f"{(f, eps, d)}: {m}")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("q,eps,d,top", BT_CASES + [
