@@ -6,9 +6,10 @@
 It drives the port's paths — the segment build
 (``core.segment.build_segment``), the batched device search as
 ``SegmentServer.search`` serves it, the range search, the online tier-0
-repack and the hybrid hot tier with inserts and tombstones — on a
-1,000,000 x 128 segment built from seeded clustered vectors, and checks
-them:
+repack, the hybrid hot tier with inserts and tombstones, and the serving
+plane (the cache-fronted host block search, the coordinator, the request
+batcher and the repack scheduler) — on a 1,000,000 x 128 segment built
+from seeded clustered vectors, and checks them:
 
   1. card: name and power limit (``nvidia-smi``);
   2. build kernels: compiles every source of ``kernels/csrc`` (one
@@ -97,10 +98,32 @@ them:
  12. large batch: one batch of 4,096 queries (R = 8,192 union slots a
      round) through ``SegmentServer.search``, its ids equal to the same
      batch's at ``fetch_impl="ref"``, its launches following the rounds;
- 13. summary: the launches of every kernel by phase (the build, Vamana,
-     each window of phases 6-12; phase 5's comparisons are not counted)
-     and in total; one JSON line of the kernels with the totals, the card
-     line, and last ``{"ok": true, "device": {...}}``.
+ 13. serving plane: the host block search (``core.search.anns`` behind
+     ``HostSegmentServer``) on 256 queries of a fourth seeded set, with
+     ``SEGMENT_BENCH_CACHED``'s cache (10% of the block file, LRU, a
+     quarter pinned, prefetch width 4) and with ``SEGMENT_BENCH_ASYNC``'s
+     tiered cache and an 8-deep queue shared through
+     ``attach_shared_fetch_queue``: recall@10, block reads, round trips,
+     hit rate, ms per query and ``pq_adc``'s launches (its routing keys);
+     64 of the queries on the card and at ``device="cpu"`` (the plain
+     ``pq_adc``), each from a cold cache: ids, dists and every
+     ``IOStats`` field equal; 32 under ``torch.profiler`` (the device's
+     idle share of the host search); ``pq_adc`` timed at the served
+     [1 x 72];
+     then 4,096 single requests near vertices of blocks the build-time
+     pack left cold, through a ``RequestBatcher(dim=128, buckets=(256,
+     1024))`` into a ``QueryCoordinator`` over the device server, with a
+     ``RepackScheduler(SERVE_REPACK)`` fed by a cached host store that
+     serves the same stream: every batch's stats dict (its totals equal
+     to the server's ``batch_stats`` columns), every decision, the batch
+     median; a repack must fire at its interval, and the batch before it
+     served again after it returns the same ids and dists with more
+     ``total_tier0_hits`` and fewer ``total_block_reads``;
+ 14. summary: the launches of every kernel by phase (the build, Vamana,
+     each window of phases 6-13; phase 5's comparisons and phase 13's
+     CPU comparison and timing are not counted) and in total; one JSON
+     line of the kernels with the totals, the card line, and last
+     ``{"ok": true, "device": {...}}``.
 
 Every served batch is checked: 10 distinct ids per query with ascending
 distances, each the exact distance of its id. recall@10 is printed, not
@@ -154,6 +177,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "block_topk": ("block_topk.cu", "src/repro/kernels/block_topk.py:51"),
 }
 ADC_HOST = 64          # the host search's ADC call: 1 query x 64 codes
+HOST_QUERIES, HOST_CHECK = 256, 64   # phase 13's host search; on the CPU
+HOST_PROFILE = 32                    # phase 13's profiled host queries
+STREAM = 4096                        # phase 13's single requests
 WIDE_Q, WIDE_F = 128, 16   # tier0_fetch_rank's wide shape: F·ε = 96 slots
 
 
@@ -336,10 +362,15 @@ def main() -> int:
     from repro_torch.core import iostats as IO
     from repro_torch.core import layout as L
     from repro_torch.core import navgraph as NG
-    from repro_torch.core.params import (SEGMENT_BENCH_DEVICE,
-                                         SERVE_DEVICE_SEARCH, HotTierParams)
+    from repro_torch.core.params import (SEGMENT_BENCH_ASYNC,
+                                         SEGMENT_BENCH_CACHED,
+                                         SEGMENT_BENCH_DEVICE,
+                                         SERVE_DEVICE_SEARCH, SERVE_REPACK,
+                                         HotTierParams)
+    from repro_torch.core.search import anns
     from repro_torch.core.segment import build_segment
     from repro_torch.data.vectors import clustered_vectors, query_set
+    from repro_torch.io.cached_store import cached_view
     from repro_torch.io.hottier import build_hot_tier
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import block_topk as BT
@@ -348,8 +379,13 @@ def main() -> int:
     from repro_torch.kernels import pq_adc as PQK
     from repro_torch.kernels import tier0_fetch as T0
     from repro_torch.obs import fold_round_log, round_log_totals
-    from repro_torch.pq.pq import lut_batch
-    from repro_torch.serving.coordinator import SegmentServer
+    from repro_torch.pq.pq import lut_batch, lut_host
+    from repro_torch.serving.batcher import RequestBatcher
+    from repro_torch.serving.coordinator import (HostSegmentServer,
+                                                 QueryCoordinator,
+                                                 SegmentServer,
+                                                 attach_shared_fetch_queue)
+    from repro_torch.serving.scheduler import RepackScheduler
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1338,6 +1374,240 @@ def main() -> int:
                   and got["fused_round_rank"] == st_b["rounds"],
                   "large-batch launches do not follow the rounds")
         take("12 plain path and checks")
+
+    with phase("13 serving plane"):
+        # the host block search behind the block cache, twice: the
+        # synchronous cache of SEGMENT_BENCH_CACHED and the tiered cache
+        # with an 8-deep shared fetch queue of SEGMENT_BENCH_ASYNC
+        host_q = query_set(x, HOST_QUERIES, seed=4)
+        truth_h = oracle(host_q)
+        take("13 oracle")
+        for name, preset in (("cached", SEGMENT_BENCH_CACHED),
+                             ("async", SEGMENT_BENCH_ASYNC)):
+            t0 = time.perf_counter()
+            view = cached_view(seg.view, seg.graph, preset.cache)
+            hs = HostSegmentServer(view=view, params=preset.search,
+                                   offset=0, num_vectors=seg.num_vectors,
+                                   device=args.device)
+            if preset.cache.queue_depth:
+                attach_shared_fetch_queue(
+                    [hs], depth=preset.cache.queue_depth)
+            wrap_s = time.perf_counter() - t0
+            ids_h, d_h, ms_h = serve(host_q, hs)
+            got = take(f"13 host search {name}")
+            check_results(host_q, ids_h, d_h)
+            agg = IO.IOStats()
+            for s_ in hs.last_stats:
+                agg.merge(s_)
+            cs = hs.cache_stats()
+            print(f"  host search ({name}: budget {preset.cache.budget_frac}"
+                  f" of the block file = {view.store.memory_bytes()} B, "
+                  f"{preset.cache.policy}, pinned "
+                  f"{len(view.store.cache.pinned)} blocks, prefetch width "
+                  f"{preset.cache.prefetch_width}, tier2_frac "
+                  f"{preset.cache.tier2_frac}, queue depth "
+                  f"{preset.cache.queue_depth}; wrap {wrap_s:.3f} s): "
+                  f"{HOST_QUERIES} queries in {ms_h:.3f} ms = "
+                  f"{ms_h / HOST_QUERIES:.3f} ms per query; recall@10 "
+                  f"{recall(ids_h, truth_h):.4f}; per query block_reads "
+                  f"{agg.block_reads / HOST_QUERIES:.3f}, io_round_trips "
+                  f"{agg.io_round_trips / HOST_QUERIES:.3f}, hops "
+                  f"{agg.hops / HOST_QUERIES:.3f}, pq_comps "
+                  f"{agg.pq_comps / HOST_QUERIES:.3f}; cache hit rate "
+                  f"{cs['hit_rate']:.4f} (tier-1 {cs['cache_hits']}, "
+                  f"tier-2 {cs['tier2_hits']}, misses {cs['cache_misses']},"
+                  f" joins {cs['inflight_joins']}, reorders "
+                  f"{cs['completion_reorders']}); launches {got}"
+                  + (f"; ADC codes per pq_adc call "
+                     f"{agg.pq_comps / got['pq_adc']:.3f}" if on_card
+                     else ""))
+            check(agg.block_reads == agg.cache_hits + agg.tier2_hits
+                  + agg.cache_misses, "cache accounting does not add up")
+            if on_card:
+                # one call for the entry points, at most one a hop
+                check(HOST_QUERIES < got["pq_adc"]
+                      <= HOST_QUERIES + agg.hops,
+                      "pq_adc launches do not follow the host search's "
+                      "hops")
+            del hs, view
+
+        # the device's share of the host search: one profiled run of 32
+        # queries behind a cold cache
+        view = cached_view(seg.view, seg.graph, SEGMENT_BENCH_CACHED.cache)
+        hs = HostSegmentServer(view=view, params=SEGMENT_BENCH_CACHED.search,
+                               offset=0, num_vectors=seg.num_vectors,
+                               device=args.device)
+        with profile(activities=acts) as prof:
+            _, _, ms_p = serve(host_q[:HOST_PROFILE], hs)
+        got = take("13 host search profiled")
+        rows_p = prof.key_averages()
+        busy_p = sum(getattr(e, "self_device_time_total", 0)
+                     for e in rows_p) / 1e3
+        print(f"  host search of {HOST_PROFILE} queries under "
+              f"torch.profiler: wall {ms_p:.3f} ms, device busy "
+              f"{busy_p:.3f} ms"
+              + (f", idle share {1 - busy_p / ms_p:.4f}" if on_card
+                 else " (not measured on the CPU)")
+              + f"; launches {got}")
+        for e in sorted(rows_p, key=lambda e: -e.self_cpu_time_total)[:5]:
+            print(f"    {e.key[:56]:56s} calls {e.count:6d} device "
+                  f"{getattr(e, 'self_device_time_total', 0) / 1e3:9.3f}"
+                  f" ms host {e.self_cpu_time_total / 1e3:9.3f} ms")
+        del hs, view
+
+        # the same 64 queries on the card and through the plain pq_adc on
+        # the CPU, each from a cold cache: equal ids, dists and IOStats
+        sub = host_q[:HOST_CHECK]
+        outs = {}
+        for dev_name in (args.device, "cpu"):
+            view = cached_view(seg.view, seg.graph,
+                               SEGMENT_BENCH_CACHED.cache)
+            t0 = time.perf_counter()
+            outs[dev_name] = anns(view, sub, 10,
+                                  SEGMENT_BENCH_CACHED.search,
+                                  device=dev_name)
+            print(f"  {HOST_CHECK} queries at device={dev_name}: "
+                  f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+        (ia, da, sa), (ib, db, sb) = outs[args.device], outs["cpu"]
+        check(np.array_equal(ia, ib) and np.array_equal(da, db)
+              and all(dataclasses.asdict(a) == dataclasses.asdict(b_)
+                      for a, b_ in zip(sa, sb)),
+              "the host search on the card differs from its CPU run")
+        print(f"  host search on the card equals its device=cpu run "
+              f"(plain pq_adc) on {HOST_CHECK} queries: ids, dists and "
+              f"every IOStats field")
+        K.reset_all_launches()          # the comparison: not counted
+
+        # pq_adc at the served host shape: one LUT against the codes of
+        # one hop's new neighbours (at most 1 + ceil((eps-1)·σ) = 3
+        # expanded vertices of degree <= Λ = 24)
+        n_exp = 1 + math.ceil((seg.vid.shape[1] - 1)
+                              * SEGMENT_BENCH_CACHED.search.pruning_ratio)
+        adc_n = n_exp * seg.adj.shape[1]
+        codes_s = ds.pq_codes[torch.as_tensor(
+            np.random.default_rng(args.seed).choice(
+                args.n, adc_n, replace=False), device=device)].contiguous()
+        lut_s = lut_host(torch.as_tensor(host_q[:1], device=device),
+                         ds.pq_cent, seg.metric).contiguous()
+        check(torch.equal(PQK.pq_adc(codes_s, lut_s),
+                          ref.pq_adc_ref(lut_s, codes_s)),
+              f"pq_adc differs from its plain version at 1 x {adc_n}")
+        if on_card:
+            flush = torch.empty(2 ** 27, dtype=torch.int32, device=device)
+            served_adc = {
+                "flushed": time_ms(lambda: PQK.pq_adc(codes_s, lut_s),
+                                   device, ITERS, flush),
+                "in_l2": time_ms(lambda: PQK.pq_adc(codes_s, lut_s),
+                                 device, ITERS),
+                "plain_flushed": time_ms(lambda: ref.pq_adc_ref(
+                    lut_s, codes_s), device, ITERS, flush),
+                "floor": time_ms(lambda: torch.cuda._sleep(0), device,
+                                 ITERS, flush)}
+            del flush
+            by = adc_n * m_sub + m_sub * k_cent * 4 + adc_n * 4
+            print(f"  pq_adc at [1 x {adc_n}] (the host search's largest "
+                  f"call): {served_adc['flushed']:.6f} ms with the L2 "
+                  f"flushed, {served_adc['in_l2']:.6f} ms with its inputs"
+                  f" in L2; plain {served_adc['plain_flushed']:.6f} ms; "
+                  f"an empty launch {served_adc['floor']:.6f} ms; byte "
+                  f"bound {by / HBM_BYTES_PER_S * 1e3:.6f} ms")
+        K.reset_all_launches()          # the comparison: not counted
+
+        # the coordinator over the device server, a repack scheduler fed
+        # by the cached host store, and a request batcher in front
+        feed_view = cached_view(seg.view, seg.graph,
+                                SEGMENT_BENCH_CACHED.cache)
+        feed = HostSegmentServer(view=feed_view,
+                                 params=SEGMENT_BENCH_CACHED.search,
+                                 offset=0, num_vectors=seg.num_vectors,
+                                 device=args.device)
+        srv_s = SegmentServer(segment=ds, offset=0,
+                              num_vectors=seg.num_vectors, params=p,
+                              device=args.device, host=seg)
+        sched = RepackScheduler(SERVE_REPACK)
+        sched.attach_feed(feed_view.store)
+        coord = QueryCoordinator([srv_s], scheduler=sched)
+        batcher = RequestBatcher(dim=DIM, buckets=(256, 1024))
+        # single requests near vertices in blocks the build-time pack
+        # left cold: a stream that drifts away from the build-time prior
+        pack0 = sorted(DS.hot_pack_blocks(srv_s.segment))
+        cold_vid = np.flatnonzero(~np.isin(seg.block_of, pack0))
+        rng = np.random.default_rng(args.seed + 6)
+        stream = (x[rng.choice(cold_vid, STREAM)] + rng.normal(
+            0, 0.01, (STREAM, DIM))).astype(np.float32)
+        for row in stream:
+            batcher.submit(row)
+        print(f"  stream: {STREAM} requests near vertices of the "
+              f"{seg.num_blocks - len(pack0)} blocks outside the "
+              f"{len(pack0)}-block build-time pack; batcher buckets "
+              f"{batcher.buckets}")
+        sched_ms, results, fired = [], [], None
+        while batcher.queue:
+            qb_, rids, nv = batcher.next_batch()
+            qb_ = qb_[:nv]
+            t0 = time.perf_counter()
+            feed.search(qb_)
+            feed_ms = (time.perf_counter() - t0) * 1e3
+            take("13 host feed")
+            sync(device)
+            t0 = time.perf_counter()
+            gi, gd, st = coord.search(qb_, k=10)
+            sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+            got = take("13 coordinator")
+            bs = srv_s.batch_stats()
+            check(st["total_block_reads"] == int(bs["io"].sum())
+                  and st["total_tier0_hits"] == int(bs["tier0_hits"].sum())
+                  and st["total_dedup_saved"] == int(bs["dedup_saved"].sum())
+                  and st["total_dedup_cross"] == int(bs["dedup_cross"].sum())
+                  and st["total_spec_hits"] == int(bs["spec_hits"].sum())
+                  and st["total_spec_wasted"] == int(bs["spec_wasted"].sum())
+                  and st["total_hot_tier_hits"] == int(
+                      bs["hot_tier_hits"].sum())
+                  and st["deduped_block_reads"] == int(
+                      bs["io"].sum() - bs["dedup_saved"].sum()),
+                  "a stats dict's totals differ from the batch columns")
+            check(set(QueryCoordinator.STATS_SCHEMA) <= set(st),
+                  "a stats dict lacks a schema key")
+            if on_card:
+                check(got["gather_union"] == bs["rounds"] > 0
+                      and got["fused_round_rank"] == bs["rounds"],
+                      "coordinator launches do not follow the rounds")
+            check_results(qb_, gi, gd)
+            sched_ms.append(ms)
+            results.append((qb_, gi, gd, st))
+            print(f"  batch {len(results)} ({nv} requests {rids[0]}.."
+                  f"{rids[-1]}): {ms:.3f} ms (host feed {feed_ms:.3f} ms);"
+                  f" stats {json.dumps(st, sort_keys=True)}")
+            if "repack" in st and fired is None and \
+                    st["repack"]["repacked"]:
+                fired = len(results)
+        print(f"  scheduler: {sched.stats()}; last decision "
+              f"{dataclasses.asdict(sched.last_decision)}")
+        print(f"  coordinator batch ms median {np.median(sched_ms):.3f} "
+              f"over {len(sched_ms)} batches of {BATCH}")
+        check(sched.evals >= 1 and "repack" in results[
+            SERVE_REPACK.interval_batches - 1][3],
+              "the scheduler did not evaluate at its interval")
+        check(fired is not None, "no scheduled repack fired (max drift "
+              f"{sched.last_decision.max_drift:.4f} against the "
+              f"hysteresis {SERVE_REPACK.hysteresis})")
+        qb_, gi0, gd0, st0 = results[fired - 1]
+        pack1 = sorted(DS.hot_pack_blocks(srv_s.segment))
+        gi1, gd1, st1 = coord.search(qb_, k=10)
+        take("13 coordinator after the repack")
+        check(np.array_equal(gi0, gi1) and np.array_equal(gd0, gd1),
+              "the scheduled repack changed the results")
+        moved = len(set(pack1) - set(pack0))
+        print(f"  batch {fired} again after the repack ({moved} of "
+              f"{len(pack1)} pack slots changed): ids and dists equal;"
+              f" total_tier0_hits {st0['total_tier0_hits']} -> "
+              f"{st1['total_tier0_hits']}, total_block_reads "
+              f"{st0['total_block_reads']} -> {st1['total_block_reads']}")
+        check(st1["total_tier0_hits"] > st0["total_tier0_hits"]
+              and st1["total_block_reads"] < st0["total_block_reads"],
+              "the repack did not move touches into tier 0")
+        del feed, feed_view, coord, srv_s
 
     total = {name: sum(c[name] for c in by_phase.values())
              for name in KERNELS}

@@ -1,8 +1,8 @@
 """PyTorch + CUDA port of the Starling segment search (the JAX package
 ``repro`` is the reference it is tested against).
 
-Two paths are ported, each down to hand-written CUDA kernels for Hopper
-(each with a plain PyTorch version that runs for CPU tensors):
+Three paths are ported, each down to hand-written CUDA kernels for
+Hopper (each with a plain PyTorch version that runs for CPU tensors):
   * the segment build: ``core.segment.build_segment`` -> ``core.graph``
     (Vamana, NSG), ``core.layout`` (BNP, BNF, GP3), ``core.navgraph``,
     ``pq.pq``, ``core.blockstore``; its brute force (``core.distances``)
@@ -10,9 +10,15 @@ Two paths are ported, each down to hand-written CUDA kernels for Hopper
   * the batched device search as a segment server serves it:
     ``serving.coordinator.SegmentServer.search`` -> ``core.device_search``
     (``from_segment``, ``device_anns``, the round loop) -> the round
-    kernels in ``kernels.tier0_fetch``.
-``kernels.ops.pq_adc_batch`` (the ``pq_adc`` kernel) is the batched ADC
-of the kernel API.
+    kernels in ``kernels.tier0_fetch``;
+  * the serving plane on one card: ``serving.coordinator.
+    QueryCoordinator`` over device and host segment servers, with a
+    ``serving.batcher.RequestBatcher`` in front and a ``serving.
+    scheduler.RepackScheduler`` steering the tier-0 pack; the host
+    server's block search (``core.search``) reads through the block
+    cache (``io.cached_store``, ``io.cache``, ``io.prefetch``,
+    ``io.async_fetch``) and ranks its candidates by PQ-ADC through the
+    ``pq_adc`` kernel.
 
 Entry points take ``device=`` and default to ``"cuda"``; nothing falls
 back to the CPU when there is no card.

@@ -1,5 +1,8 @@
 """Block-resident storage of the graph index (port of ``repro.core.
-blockstore``): the block file's arrays and its byte accounting.
+blockstore``): the block file's arrays, its byte accounting and the
+block read the host search goes through (``read_block``: one I/O, one
+block; the arrays stand in for the disk, so a read lands in host
+memory).
 
 Byte accounting follows Example 2: γ = D·b + 4 + Λ·4 bytes per vertex,
 ε = ⌊η/γ⌋ vertices per η-KB block. Arrays:
@@ -10,6 +13,7 @@ Byte accounting follows Example 2: γ = D·b + 4 + Λ·4 bytes per vertex,
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import numpy as np
 
@@ -48,6 +52,12 @@ class BlockStore:
     def disk_bytes(self) -> int:
         """Total 'disk' footprint: ρ blocks of η KB."""
         return int(self.num_blocks * self.block_kb * 1024)
+
+    def read_block(self, b: int) -> Tuple[np.ndarray, np.ndarray,
+                                          np.ndarray, np.ndarray]:
+        """One I/O: (ids [ε], vecs [ε, D], deg [ε], nbrs [ε, Λ])."""
+        return (self.vid[b], self.vecs[b],
+                self.meta[b, :, 0], self.meta[b, :, 1:])
 
 
 def build_store(x: np.ndarray, g: Graph, layout: BlockLayout,

@@ -126,7 +126,7 @@ def _tier0_pack(seg, num_blocks: int, observed=None, plan=None):
             hot = [int(b) for b in plan]
         else:
             ranking = hotset.hot_block_ranking(
-                seg.block_of, seg.adj, seg.deg, hotset.segment_seed_ids(seg))
+                seg.block_of, seg.adj, seg.deg, hotset.view_seed_ids(seg.view))
             hot = hotset.plan_tier0(ranking, observed or {}, num_blocks,
                                     rho)
     slot_of = np.full(rho, -1, np.int32)

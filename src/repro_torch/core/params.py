@@ -1,11 +1,12 @@
-"""Parameter dataclasses of the device search and of the segment
-fields ``device_search.from_segment`` reads.
+"""Parameter dataclasses of the segment, its host search and serving
+plane, and the device search.
 
 Copies of ``repro.core.params`` / ``repro.configs.starling_segment``
 with the same field names, so one set of values drives both packages.
 Only the fields this package reads are kept (the build's graph, layout,
-navigation-graph and budget knobs, the device search's, the hot
-tier's). ``fetch_impl`` takes
+navigation-graph and budget knobs, the host search's, the block cache's
+and the device tier-0 budget, the repack scheduler's, the device
+search's, the hot tier's). ``fetch_impl`` takes
 ``"fused"`` (the CUDA round kernels) or ``"ref"`` (the plain PyTorch
 round stage, the counterpart of the JAX ``"jnp"``).
 """
@@ -100,33 +101,108 @@ class HotTierParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class SearchParams:
+    """Host block-search knobs (§5; ``core.search``)."""
+    candidate_size: int = 64      # Γ
+    pruning_ratio: float = 0.3    # σ
+    use_pq_routing: bool = True
+    use_nav_graph: bool = True
+    use_block_search: bool = True  # False → vertex-at-a-time
+    pipeline: bool = True          # I/O–compute overlap (modeled)
+    rs_ratio: float = 0.5          # φ
+    rs_max_rounds: int = 6         # cap on candidate-set doublings
+    max_hops: int = 4096           # safety valve
+
+
+@dataclasses.dataclass(frozen=True)
 class CacheParams:
-    """The host block-cache budget (``budget_*``, C_cache of Eq. 10; the
-    host cache is not ported, so ``core.segment.build_segment`` refuses
-    it) and the device tier-0 budget (``tier0_*``)."""
+    """The host block cache (``io.cached_store``) and the device tier-0
+    budget.
+
+    ``budget_bytes`` / ``budget_frac`` (of the block file) reserve the
+    host cache, charged as C_cache into Eq. 10; both zero disables it.
+    ``pin_fraction`` of tier 1 holds the build-time hot set;
+    ``prefetch_width`` speculative blocks ride each demand read;
+    ``tier2_frac`` of the budget becomes compressed PQ-space summaries
+    at ``block_bytes // tier2_compression`` each; ``queue_depth`` > 0
+    switches the fetch path to the event-clock ``AsyncFetchQueue``.
+    ``tier0_bytes`` / ``tier0_frac`` budget the device hot-tile pack
+    (``device_search.from_segment``), charged as C_tier0."""
     budget_bytes: int = 0         # absolute host block-cache budget
     budget_frac: float = 0.0      # fraction of disk_bytes (if bytes == 0)
+    policy: str = "lru"           # lru | lfu
+    pin_fraction: float = 0.25    # share of tier-1 capacity pinned
+    prefetch_width: int = 4       # speculative blocks per demand read
+    tier2_frac: float = 0.0       # share of the budget in the summary tier
+    tier2_compression: int = 16   # full-block bytes per summary byte
+    queue_depth: int = 0          # in-flight fetches (0 → synchronous)
     tier0_bytes: int = 0          # absolute device hot-tile budget
     tier0_frac: float = 0.0       # fraction of disk_bytes (if bytes == 0)
 
     def __post_init__(self):
+        if self.policy not in ("lru", "lfu"):
+            raise ValueError(
+                f"unknown eviction policy {self.policy!r} (lru | lfu)")
+        if not (0.0 <= self.pin_fraction <= 1.0
+                and 0.0 <= self.budget_frac <= 1.0
+                and self.budget_bytes >= 0 and self.prefetch_width >= 0):
+            raise ValueError(
+                "CacheParams out of range: pin_fraction/budget_frac in "
+                "[0, 1], budget_bytes/prefetch_width >= 0")
+        if not (0.0 <= self.tier2_frac < 1.0):
+            raise ValueError("tier2_frac must be in [0, 1): tier 1 "
+                             "needs a non-empty share of the budget")
+        if self.tier2_compression < 1 or self.queue_depth < 0:
+            raise ValueError(
+                "tier2_compression must be >= 1 and queue_depth >= 0")
         if not (0.0 <= self.tier0_frac <= 1.0) or self.tier0_bytes < 0:
             raise ValueError(
                 "tier0_frac must be in [0, 1] and tier0_bytes >= 0")
-        if not (0.0 <= self.budget_frac <= 1.0) or self.budget_bytes < 0:
-            raise ValueError(
-                "budget_frac must be in [0, 1] and budget_bytes >= 0")
 
     @property
     def enabled(self) -> bool:
         """Whether the host block cache is asked for."""
         return self.budget_bytes > 0 or self.budget_frac > 0.0
 
+    @property
+    def tier0_enabled(self) -> bool:
+        return self.tier0_bytes > 0 or self.tier0_frac > 0.0
+
+    def resolve_budget(self, disk_bytes: int) -> int:
+        """Host cache budget in bytes (Eq. 10's C_cache charge)."""
+        if self.budget_bytes > 0:
+            return self.budget_bytes
+        return int(self.budget_frac * disk_bytes)
+
     def resolve_tier0_budget(self, disk_bytes: int) -> int:
         """Device hot-tile budget in bytes (Eq. 10's C_tier0 charge)."""
         if self.tier0_bytes > 0:
             return self.tier0_bytes
         return int(self.tier0_frac * disk_bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class RepackParams:
+    """Knobs of the tier-0 repack scheduler (``serving.scheduler``): a
+    repack is evaluated every ``interval_batches`` served batches and
+    fires only when at least ``hysteresis`` of the pack's slots would
+    change and the observed tier-0 hit rate is below
+    ``hit_rate_ceiling``; blocks with fewer than ``min_observed``
+    demand reads are ignored."""
+    interval_batches: int = 8
+    hysteresis: float = 0.25
+    min_observed: int = 1
+    hit_rate_ceiling: float = 0.95
+
+    def __post_init__(self):
+        if self.interval_batches < 1:
+            raise ValueError("interval_batches must be >= 1")
+        if not (0.0 <= self.hysteresis <= 1.0
+                and 0.0 <= self.hit_rate_ceiling <= 1.0):
+            raise ValueError(
+                "hysteresis and hit_rate_ceiling must be in [0, 1]")
+        if self.min_observed < 1:
+            raise ValueError("min_observed must be >= 1")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +220,7 @@ class SegmentParams:
     layout: LayoutParams = dataclasses.field(default_factory=LayoutParams)
     pq: PQParams = dataclasses.field(default_factory=PQParams)
     nav: NavGraphParams = dataclasses.field(default_factory=NavGraphParams)
+    search: SearchParams = dataclasses.field(default_factory=SearchParams)
     cache: CacheParams = dataclasses.field(default_factory=CacheParams)
     budget: SegmentBudget = dataclasses.field(default_factory=SegmentBudget)
     metric: str = "l2"            # l2 | ip
@@ -205,8 +282,11 @@ class DeviceSearchParams:
 
 # the bench segment (repro.configs.starling_segment SEGMENT_BENCH: the
 # paper's BIGANN knobs — Λ=24, L=64, α=1.2, BNF with β=8 and τ=0.001,
-# PQ M=8, navigation graph μ=0.1, Λ'=12, L'=32) and the same segment with
-# the device tier-0 hot-tile pack at 10% of the block file
+# PQ M=8, navigation graph μ=0.1, Λ'=12, L'=32, Γ=48, σ=0.3, φ=0.5); the
+# same segment with the host block cache at 10% of the block file (a
+# quarter pinned, LRU, 4-wide prefetch), with the async tiered cache at
+# the same budget (a quarter of it compressed summaries, an 8-deep fetch
+# queue), and with the device tier-0 hot-tile pack at 10%
 SEGMENT_BENCH = SegmentParams(
     graph=GraphParams(max_degree=24, build_beam=64, alpha=1.2,
                       algo="vamana"),
@@ -215,8 +295,19 @@ SEGMENT_BENCH = SegmentParams(
     pq=PQParams(num_subspaces=8, num_centroids=256, train_iters=12),
     nav=NavGraphParams(sample_ratio=0.1, max_degree=12, build_beam=32,
                        search_beam=16, num_entry_points=4),
+    search=SearchParams(candidate_size=48, pruning_ratio=0.3,
+                        rs_ratio=0.5),
     metric="l2",
 )
+SEGMENT_BENCH_CACHED = dataclasses.replace(
+    SEGMENT_BENCH,
+    cache=CacheParams(budget_frac=0.10, policy="lru", pin_fraction=0.25,
+                      prefetch_width=4))
+SEGMENT_BENCH_ASYNC = dataclasses.replace(
+    SEGMENT_BENCH,
+    cache=CacheParams(budget_frac=0.10, policy="lru", pin_fraction=0.25,
+                      prefetch_width=4, tier2_frac=0.25,
+                      tier2_compression=16, queue_depth=8))
 SEGMENT_BENCH_DEVICE = dataclasses.replace(
     SEGMENT_BENCH, cache=CacheParams(tier0_frac=0.10))
 
@@ -227,3 +318,9 @@ DEVICE_SEARCH_BATCH = DeviceSearchParams(candidates=48, max_hops=256,
 # the serving preset (repro.serving.coordinator.SERVE_DEVICE_SEARCH)
 SERVE_DEVICE_SEARCH = dataclasses.replace(DEVICE_SEARCH_BATCH,
                                           candidates=64)
+
+# the serving plane's repack control loop: evaluate every 4 batches, fire
+# only when >= 25% of the tier-0 pack would change, and leave a pack
+# alone while it absorbs >= 95% of block touches
+SERVE_REPACK = RepackParams(interval_batches=4, hysteresis=0.25,
+                            min_observed=1, hit_rate_ceiling=0.95)

@@ -10,6 +10,14 @@ load_segment`` reads, and ``load_segment`` reads the ``.npz`` that
 ``repro.core.segment.save_segment`` writes (``segment_from_arrays``
 takes the same keys as a dict).
 
+``Segment.view`` is the ``core.search.SegmentView`` the host search
+reads, built once with the segment over the same arrays: its store is
+shared state (with ``params.cache`` enabled it is the cache-fronted
+``io.cached_store.CachedBlockStore``, whose residency and demand counts
+persist across queries), so it is never rebuilt behind the caller's
+back. ``device_search.from_segment`` reads the flat arrays, the same
+ones whether or not the store is cached.
+
 Arrays (ρ blocks of ε slots, N vertices, Λ max degree):
   vid [ρ, ε] i32 (-1 pad), vecs [ρ, ε, D] f32, meta [ρ, ε, 1+Λ] i32
   (degree, then neighbour ids, -1 pad) — the block store;
@@ -33,9 +41,11 @@ import torch
 from repro_torch.core import graph as G
 from repro_torch.core import layout as L
 from repro_torch.core import navgraph as NG
-from repro_torch.core.blockstore import build_store
+from repro_torch.core.blockstore import BlockStore, build_store
 from repro_torch.core.params import SegmentParams
-from repro_torch.pq.pq import encode_pq, train_pq
+from repro_torch.core.search import SegmentView
+from repro_torch.io.cached_store import CachedBlockStore, cached_view
+from repro_torch.pq.pq import PQCodebook, encode_pq, train_pq
 
 _KEYS = ("adj", "deg", "entry", "blocks", "block_of", "slot_of", "vid",
          "vecs", "meta", "pq_codes", "pq_cent", "nav_ids", "nav_adj",
@@ -66,10 +76,22 @@ class Segment:
     build_times: Dict[str, float] = dataclasses.field(default_factory=dict)
     overlap_ratio: float = float("nan")       # OR(G) of the layout (Eq. 5)
     build_info: Dict = dataclasses.field(default_factory=dict)
+    view: Optional[SegmentView] = None        # built once from the arrays
 
     def __post_init__(self):
         if self.nav_deg is None:
             self.nav_deg = (self.nav_adj >= 0).sum(1).astype(np.int32)
+        if self.view is None:
+            view = SegmentView(
+                store=BlockStore(vid=self.vid, vecs=self.vecs,
+                                 meta=self.meta, block_kb=self.block_kb),
+                layout=self.layout, nav=self.nav, pq_codes=self.pq_codes,
+                pq_cb=PQCodebook(centroids=self.pq_cent,
+                                 dim=self.vecs.shape[2], metric=self.metric),
+                metric=self.metric, entry=self.entry)
+            if self.params.cache.enabled:
+                view = cached_view(view, self.graph, self.params.cache)
+            self.view = view
 
     @property
     def num_vectors(self) -> int:
@@ -105,13 +127,17 @@ class Segment:
     def memory_bytes(self) -> int:
         """Eq. 10: C_graph (the navigation graph's vectors, adjacency,
         degrees and ids) + C_mapping (block and slot per vertex) +
-        C_PQ (codes and centroids) + C_tier0 (the device hot-tile
-        budget). C_cache is 0: the host block cache is not ported."""
+        C_PQ (codes and centroids) + C_cache (the host block cache's
+        reserved budget, every tier, when the view's store is cached) +
+        C_tier0 (the device hot-tile budget)."""
         c_graph = (self.nav_vecs.nbytes + self.nav_adj.nbytes
                    + self.nav_deg.nbytes + self.nav_ids.nbytes)
         c_mapping = self.block_of.nbytes + self.slot_of.nbytes
         c_pq = self.pq_codes.nbytes + self.pq_cent.nbytes
-        return c_graph + c_mapping + c_pq + self.tier0_bytes()
+        store = self.view.store
+        c_cache = (store.memory_bytes()
+                   if isinstance(store, CachedBlockStore) else 0)
+        return c_graph + c_mapping + c_pq + c_cache + self.tier0_bytes()
 
     def tier0_bytes(self) -> int:
         """C_tier0: the configured device hot-tile budget."""
@@ -127,8 +153,9 @@ class Segment:
 def segment_from_arrays(arrays: Mapping[str, np.ndarray],
                         params: Optional[SegmentParams] = None) -> Segment:
     """Build the host ``Segment`` from the ``save_segment`` keys.
-    ``params`` supplies the tier-0 budget (``params.cache``); by default
-    the segment has none."""
+    ``params`` supplies the search knobs and the cache and tier-0
+    budgets (``params.cache``: an enabled host cache fronts the view's
+    store); by default the segment has neither."""
     missing = [k for k in _KEYS if k not in arrays]
     if missing:
         raise KeyError(f"segment arrays lack {missing}")
@@ -191,10 +218,8 @@ def build_segment(x: np.ndarray, params: SegmentParams,
     ``build_info`` the graph stage's own counters (``knn_s`` and
     ``attached`` for NSG, ``search_s`` and ``attached`` for Vamana) and
     ``or_history``, OR(G) of the initial layout and after each
-    shuffling round."""
-    if params.cache.enabled:
-        raise NotImplementedError("the host block cache (C_cache) is not "
-                                  "ported; use a budget_* of 0")
+    shuffling round. With ``params.cache`` enabled the view's store is
+    cache-fronted (``io.cached_store.cached_view``)."""
     dev = torch.device(device)
     x = np.ascontiguousarray(x, np.float32)
     times: Dict[str, float] = {}

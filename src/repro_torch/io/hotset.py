@@ -1,17 +1,20 @@
-"""Build-time hot-set selection of the device tier-0 pack (numpy copy
-of the parts of ``repro.io.hotset`` that ``from_segment`` uses).
+"""Build-time hot-set selection shared by every cache tier (numpy
+copy of ``repro.io.hotset``).
 
 Blocks are scored by traversal frequency around the navigation-graph
 entry neighbourhood (the seeds queries enter through, and their
-disk-graph neighbours, seeds weighted above neighbours); ``fill_to``
-extends the ranking to the budget in id order, so growing budgets
-select nested sets. ``repack_from_frequencies`` / ``plan_tier0``
-re-rank it by observed per-block demand.
+disk-graph neighbours, seeds weighted above neighbours). The host
+tier-1 cache pins a prefix of the ranking (``hot_block_pin_set``); the
+device tier-0 pack fills its budget from it (``fill_to`` extends the
+ranking in id order, so growing budgets select nested sets).
+``repack_from_frequencies`` / ``plan_tier0`` re-rank it by observed
+per-block demand, and ``pack_drift`` is the repack scheduler's
+hysteresis signal.
 """
 from __future__ import annotations
 
 from collections import Counter
-from typing import List, Mapping, Sequence
+from typing import AbstractSet, List, Mapping, Sequence
 
 import numpy as np
 
@@ -45,6 +48,16 @@ def hot_block_ranking(block_of: np.ndarray, adj: np.ndarray,
     return [b for b, _ in counts.most_common()]
 
 
+def hot_block_pin_set(block_of: np.ndarray, adj: np.ndarray,
+                      deg: np.ndarray, seed_ids: Sequence[int],
+                      max_blocks: int, hops: int = 1) -> List[int]:
+    """Top ``max_blocks`` of the shared ranking (the tier-1 pin set)."""
+    if max_blocks <= 0:
+        return []
+    return hot_block_ranking(block_of, adj, deg, seed_ids, hops)[
+        :max_blocks]
+
+
 def repack_from_frequencies(ranking: Sequence[int],
                             observed: Mapping[int, int]) -> List[int]:
     """Re-rank a build-time ranking by observed traffic: touched blocks
@@ -69,6 +82,18 @@ def plan_tier0(ranking: Sequence[int], observed: Mapping[int, int],
     if obs:
         ranking = repack_from_frequencies(ranking, obs)
     return fill_to(ranking, num_blocks, total_blocks)
+
+
+def pack_drift(current: AbstractSet, planned: Sequence[int]) -> float:
+    """Fraction of pack slots a repack would change (the scheduler's
+    hysteresis signal): 0.0 when the plan is the live pack, 1.0 for a
+    full replacement; growing or shrinking plans register too."""
+    planned_set = set(int(b) for b in planned)
+    denom = max(len(current), len(planned_set))
+    if denom == 0:
+        return 0.0
+    return max(len(planned_set - current),
+               len(set(current) - planned_set)) / denom
 
 
 def fill_to(ranking: Sequence[int], num_blocks: int,
@@ -96,9 +121,11 @@ def fill_to(ranking: Sequence[int], num_blocks: int,
     return out
 
 
-def segment_seed_ids(seg) -> np.ndarray:
-    """The entry seeds of a host ``Segment``: the navigation-graph
-    sample when it has one, else its entry (medoid)."""
-    if seg.nav_ids.shape[0]:
-        return np.asarray(seg.nav_ids)
-    return np.asarray([seg.entry], np.int64)
+def view_seed_ids(view) -> np.ndarray:
+    """The entry seeds of a ``core.search.SegmentView``: the
+    navigation-graph sample when navigation is on, else the static entry
+    (medoid) — the same seeds for every tier, so host pinning, the
+    device pack and the hot tier agree on what "hot" means."""
+    if getattr(view, "nav", None) is not None:
+        return np.asarray(view.nav.sample_ids)
+    return np.asarray([view.entry], np.int64)

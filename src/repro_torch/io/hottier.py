@@ -231,7 +231,7 @@ def build_hot_tier(seg, p: HotTierParams = HotTierParams(),
     block_of = np.asarray(seg.block_of)
     n = int(block_of.shape[0])
     ranking = hotset.hot_block_ranking(
-        block_of, seg.adj, seg.deg, hotset.segment_seed_ids(seg),
+        block_of, seg.adj, seg.deg, hotset.view_seed_ids(seg.view),
         hops=p.hops)
     order = hotset.fill_to(ranking, seg.num_blocks, seg.num_blocks)
     budget = max(int(math.ceil(p.budget_frac * n)), 1)

@@ -6,10 +6,12 @@
 //   out[b, n] = sum_m luts[b, m, codes[n, m]]
 //
 // codes [N, M] u8, luts [B, M, K] f32 -> out [B, N] f32 (the layout of
-// repro.kernels.ops.pq_adc_batch). Each output adds its M terms in order
-// m = 0, 1, ..., M-1 (the first term is not added to a zero), with codes
-// at or above K clamped to K - 1: the plain version's f32 order, so the
-// bits equal it.
+// repro.kernels.ops.pq_adc_batch). Each output adds its M terms in
+// numpy's pairwise order (the order of np.sum along a row, which the JAX
+// host search's adc_distance uses): in order m = 0, 1, ... below 8 terms;
+// else 8 partial sums r[m % 8], reduced as ((r0+r1)+(r2+r3))+((r4+r5)+
+// (r6+r7)) — Sum below. Codes at or above K clamp to K - 1. This is the
+// plain version's f32 order, so the bits equal it.
 //
 // The TPU kernel expands each code tile into a one-hot [BN, M*K] matrix
 // and multiplies it into the LUTs on the MXU, because the TPU's vector
@@ -29,8 +31,8 @@
 //    m in the upper half, and the second row of each pair loads its terms
 //    in the order 1, 0, 3, 2, ..., so the two rows of a pass always read
 //    different halves: no bank conflict whatever the codes. The terms are
-//    swapped back in registers before they are added, so the order of the
-//    sum stays m = 0, 1, ...;
+//    swapped back in registers before they are added, so each term
+//    reaches its own partial sum;
 //  * a lane takes 4 consecutive rows: it loads their 4·M code bytes in
 //    one to eight 16-byte loads (clamped to K - 1 four bytes at a time,
 //    and only where K < 256), turns each into a shared-memory offset
@@ -120,6 +122,25 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
+// one row's M terms (4 queries a float4) summed in numpy's pairwise
+// order; add(m, v) is called for m = 0, 1, ..., M - 1 with m a constant
+// once unrolled, so r stays in registers
+template <int M>
+struct Sum {
+  static_assert(M < 8 || M % 8 == 0, "pairwise order: M < 8 or 8 | M");
+  float4 r[8];
+  __device__ __forceinline__ void add(int m, float4 v) {
+    if constexpr (M < 8) r[0] = m == 0 ? v : add4(r[0], v);
+    else if (m < 8) r[m] = v;
+    else r[m & 7] = add4(r[m & 7], v);
+  }
+  __device__ __forceinline__ float4 total() const {
+    if constexpr (M < 8) return r[0];
+    else return add4(add4(add4(r[0], r[1]), add4(r[2], r[3])),
+                     add4(add4(r[4], r[5]), add4(r[6], r[7])));
+  }
+};
+
 // each byte of w clamped to kmax (codes at or above K read entry K - 1)
 __device__ __forceinline__ uint32_t clamp_bytes(uint32_t w, uint32_t kmax) {
   uint32_t r = 0;
@@ -198,6 +219,7 @@ pq_adc_kernel(const uint8_t* __restrict__ codes,
       float4 acc[4];
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
+        Sum<M> sum;
         if constexpr (BQ == 16) {
           // pair (2i, 2i+1): the second row of a pass loads 2i+1 first;
           // both bytes sit in one word (M is even)
@@ -212,17 +234,18 @@ pq_adc_kernel(const uint8_t* __restrict__ codes,
             const float4 a = lut4[((i * k + ca) * 2 + pa) * 4 + h];
             const float4 bb = lut4[((i * k + cb) * 2 + 1 - pa) * 4 + h];
             const float4 x0 = odd ? bb : a, x1 = odd ? a : bb;
-            acc[s] = i == 0 ? add4(x0, x1) : add4(add4(acc[s], x0), x1);
+            sum.add(2 * i, x0);
+            sum.add(2 * i + 1, x1);
           }
         } else {
 #pragma unroll
           for (int m = 0; m < M; ++m) {
             const int e = s * M + m;
             const int cm = (cw[e >> 2] >> (8 * (e & 3))) & 0xff;
-            const float4 v = lut4[T::at(m, cm, k) / 4 + h];
-            acc[s] = m == 0 ? v : add4(acc[s], v);
+            sum.add(m, lut4[T::at(m, cm, k) / 4 + h]);
           }
         }
+        acc[s] = sum.total();
       }
       // queries q0 + 4h .. q0 + 4h + 3, rows r0 .. r0 + 3
 #pragma unroll

@@ -3,7 +3,9 @@ and its wrapper.
 
 ``pq_adc(codes, luts)`` gives ``out[b, n] = sum_m luts[b, m, codes[n,
 m]]`` for codes [N, M] u8 and LUTs [B, M, K] f32, as the [B, N] f32
-array of ``repro.kernels.ops.pq_adc_batch``. It replaces ``repro.
+array of ``repro.kernels.ops.pq_adc_batch``, the M terms added in
+numpy's pairwise order (``ref.pairwise_sum``: the order of the JAX host
+search's ``adc_distance``, so the host search's keys equal its bits). It replaces ``repro.
 kernels.pq_adc.pq_adc``: the TPU kernel's one-hot matmul becomes table
 lookups in shared memory, the LUTs of 16 queries (8 or 4 where the
 batch is smaller or the tables larger) staged query-interleaved. The

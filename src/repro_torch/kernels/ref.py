@@ -35,14 +35,38 @@ def pairwise_l2_ref(q: torch.Tensor, x: torch.Tensor,
     return torch.clamp_min(qq + xx[None, :] - 2.0 * dot, 0.0)
 
 
+def pairwise_sum(terms) -> torch.Tensor:
+    """Sum a list of equal-shape tensors in numpy's pairwise order (the
+    order of ``np.sum`` along a contiguous axis of up to 128 terms):
+    in order below 8 terms; else 8 running partial sums, strided by 8,
+    reduced as ((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7)), then the remainder
+    added in order."""
+    n = len(terms)
+    if n < 8:
+        acc = terms[0]
+        for t in terms[1:]:
+            acc = acc + t
+        return acc
+    r = list(terms[:8])
+    i = 8
+    while i < n - n % 8:
+        for j in range(8):
+            r[j] = r[j] + terms[i + j]
+        i += 8
+    acc = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]))
+    for t in terms[i:]:
+        acc = acc + t
+    return acc
+
+
 def pq_adc_ref(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """luts [B, M, K] f32, codes [N, M] int -> [B, N] ADC distances,
-    summed over m in order (codes past K clamp, as JAX gathers do)."""
+    the M lookups summed in numpy's pairwise order (``pairwise_sum``:
+    the order of the JAX host search's ``adc_distance``); codes past K
+    clamp, as JAX gathers do."""
     c = codes.long().clamp(0, luts.shape[2] - 1)
-    out = luts[:, 0, :][:, c[:, 0]]
-    for j in range(1, luts.shape[1]):
-        out = out + luts[:, j, :][:, c[:, j]]
-    return out
+    return pairwise_sum([luts[:, j, :][:, c[:, j]]
+                         for j in range(luts.shape[1])])
 
 
 def sq_dists(q: torch.Tensor, t: torch.Tensor, metric: str) -> torch.Tensor:

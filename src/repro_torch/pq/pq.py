@@ -5,8 +5,9 @@
                  ``PQCodebook``
   encode_pq    — [N, M] uint8 codes
   adc_lut      — per-query [M, K] lookup table of subspace distances
-  adc_lut_batch — [Q, M, K] for a batch of queries (``lut_batch`` on
-                 tensors, which the device search calls too)
+  adc_lut_batch — [Q, M, K] for a batch of queries (``lut_host`` on
+                 tensors, which the host search calls; the device
+                 search's own tables are ``lut_batch``)
   adc_distance — sum of LUT entries along the codes, through
                  ``kernels.ops.pq_adc_batch`` (the ``pq_adc`` CUDA kernel on
                  the card)
@@ -17,6 +18,14 @@ Arrays go in and out as numpy, as in the JAX package; the work runs on
 CPU). The training sample and the initial centroids come from the same
 numpy generator calls as the JAX package, so for the same data and seed
 the codebooks agree to float tolerance and the codes are equal.
+
+The two LUT forms keep the f32 order of their JAX twins, so the keys
+equal theirs bit for bit: ``lut_batch`` adds the dsub terms in order, as
+the device search's jnp ``_adc_lut``; ``lut_host`` adds them as numpy's
+``einsum`` does in the JAX host search's ``adc_lut`` (four lanes of
+chained adds, then a pairwise reduction of the lanes; ``ip``: numpy's
+pairwise ``sum``), and ``pq_adc`` adds the M lookups in numpy's pairwise
+order, as ``adc_distance``'s ``.sum(axis=1)``.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch
 
 from repro_torch.core.params import PQParams
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import pairwise_sum
 
 
 @dataclasses.dataclass
@@ -130,11 +140,49 @@ def lut_batch(q: torch.Tensor, cent: torch.Tensor,
     return -acc if metric == "ip" else acc
 
 
+def _einsum_sum(p: torch.Tensor) -> torch.Tensor:
+    """p [..., d] -> [...]: numpy's ``einsum`` reduction of a contiguous
+    axis of products (4 f32 lanes; lane l adds terms l, l+4, ...; each
+    16-term step folds its four 4-term chunks into the lanes last to
+    first; a tail chunk is zero-padded; the lanes reduce as
+    (l0+l1)+(l2+l3))."""
+    d = p.shape[-1]
+    pad = (-d) % 4
+    if pad:
+        p = torch.nn.functional.pad(p, (0, pad))
+    lanes = torch.zeros(p.shape[:-1] + (4,), dtype=p.dtype, device=p.device)
+    pos, cnt = 0, d
+    while cnt >= 16:
+        c = [p[..., pos + 4 * i:pos + 4 * i + 4] for i in range(4)]
+        lanes = c[0] + (c[1] + (c[2] + (c[3] + lanes)))
+        pos, cnt = pos + 16, cnt - 16
+    while cnt > 0:
+        lanes = p[..., pos:pos + 4] + lanes
+        pos, cnt = pos + 4, cnt - 4
+    return ((lanes[..., 0] + lanes[..., 1])
+            + (lanes[..., 2] + lanes[..., 3]))
+
+
+def lut_host(q: torch.Tensor, cent: torch.Tensor,
+             metric: str = "l2") -> torch.Tensor:
+    """q [Q, D], cent [M, K, dsub] (one device) -> LUTs [Q, M, K] f32 in
+    the f32 order of the JAX host search's numpy ``adc_lut``: the
+    squared difference summed as ``einsum`` sums it, or for ``ip`` the
+    negated pairwise ``sum`` of the products."""
+    m, _, dsub = cent.shape
+    qs = q.reshape(q.shape[0], m, 1, dsub).to(torch.float32)
+    if metric == "ip":
+        prod = cent[None] * qs                               # [Q, M, K, dsub]
+        return -pairwise_sum([prod[..., j] for j in range(dsub)])
+    diff = cent[None] - qs
+    return _einsum_sum(diff * diff)
+
+
 def adc_lut_batch(q, cb: PQCodebook, *, device="cuda") -> np.ndarray:
-    """q [Q, D] -> LUTs [Q, M, K] f32 (``lut_batch`` on ``device``)."""
+    """q [Q, D] -> LUTs [Q, M, K] f32 (``lut_host`` on ``device``)."""
     qt = torch.as_tensor(np.asarray(q, np.float32), device=device)
-    return lut_batch(qt, torch.as_tensor(cb.centroids, device=device),
-                     cb.metric).cpu().numpy()
+    return lut_host(qt, torch.as_tensor(cb.centroids, device=device),
+                    cb.metric).cpu().numpy()
 
 
 def adc_lut(q, cb: PQCodebook, *, device="cuda") -> np.ndarray:
@@ -145,9 +193,11 @@ def adc_lut(q, cb: PQCodebook, *, device="cuda") -> np.ndarray:
 
 def adc_distance(lut, codes, *, device="cuda") -> np.ndarray:
     """lut [M, K], codes [n, M] -> [n] approximate distances, through
-    the ``pq_adc`` kernel on ``device`` (its plain version on the CPU)."""
-    lt = torch.as_tensor(np.asarray(lut, np.float32), device=device)
-    ct = torch.as_tensor(np.asarray(codes, np.uint8), device=device)
+    the ``pq_adc`` kernel on ``device`` (its plain version on the CPU).
+    Tensors already on ``device`` are used in place, so a caller that
+    keeps the codes and the LUT there moves only the [n] keys back."""
+    lt = torch.as_tensor(lut, dtype=torch.float32, device=device)
+    ct = torch.as_tensor(codes, dtype=torch.uint8, device=device)
     return ops.pq_adc_batch(ct, lt[None])[0].cpu().numpy()
 
 

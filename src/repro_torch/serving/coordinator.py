@@ -1,20 +1,41 @@
-"""Segment serving on the card (port of ``SegmentServer`` and
-``merge_topk`` from ``repro.serving.coordinator``): the batched device
-search, the hybrid hot tier with tombstones, and the online tier-0
-repack.
+"""The serving plane on one card (port of ``repro.serving.
+coordinator``, Fig. 1(b)).
+
+  * ``SegmentServer`` — the batched device search, the hybrid hot tier
+    with tombstones, and the online tier-0 repack;
+  * ``HostSegmentServer`` — the host block search (``core.search.anns``)
+    over one view whose cache-fronted store is shared by every query it
+    serves, so residency and the hit rate come from inter-query
+    locality;
+  * ``attach_shared_fetch_queue`` — one ``AsyncFetchQueue`` shared by
+    the cache-fronted servers, so concurrent queries join each other's
+    in-flight fetches;
+  * ``QueryCoordinator`` — scatters a batch over ``SegmentTarget``s,
+    merges the per-segment top-k by (dist, global id), reports the
+    batch's counters (``STATS_SCHEMA``) and drives a
+    ``serving.scheduler.RepackScheduler``.
+
+The JAX coordinator's tracer and metrics hooks (``tracer=``/
+``metrics=``, ``attach_obs``, the ``coord.*`` and ``host.search`` spans,
+``_publish_metrics``) are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.device_search import (DeviceSegment, device_anns,
                                             repack_tier0)
-from repro_torch.core.params import SERVE_DEVICE_SEARCH, DeviceSearchParams
+from repro_torch.core.params import (SERVE_DEVICE_SEARCH,
+                                     DeviceSearchParams, SearchParams)
+from repro_torch.core.search import SegmentView, anns
+from repro_torch.io.async_fetch import AsyncFetchQueue
+from repro_torch.io.cached_store import CachedBlockStore
 from repro_torch.io.hottier import merge_hot_cold
+from repro_torch.serving import target as tgt
 
 
 def merge_topk(ids: Sequence[np.ndarray], dists: Sequence[np.ndarray],
@@ -153,3 +174,195 @@ class SegmentServer:
                 "dma_pipelined": (self.params.pipeline_dma
                                   and self.params.fetch_impl == "fused"),
                 "dma_speculative": self.params.speculate}
+
+
+@dataclasses.dataclass
+class HostSegmentServer:
+    """Host-path segment server with one block cache shared by every
+    query it serves. ``view.store`` should be a ``CachedBlockStore``
+    (a segment built with ``SegmentParams.cache`` enabled); an uncached
+    view serves the same results without cache counters. The routing
+    keys and navigation entries run on ``device``."""
+    view: SegmentView
+    params: SearchParams
+    offset: int                   # base of this segment's id space
+    num_vectors: int
+    k_default: int = 10
+    device: str = "cuda"
+
+    @classmethod
+    def from_segment(cls, seg, offset: int,
+                     device="cuda") -> "HostSegmentServer":
+        return cls(view=seg.view, params=seg.params.search, offset=offset,
+                   num_vectors=seg.num_vectors, device=device)
+
+    def search(self, queries: np.ndarray, k: Optional[int] = None
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """queries [Q, D] -> (ids [Q, k], dists [Q, k], block_reads [Q]);
+        the per-query ``IOStats`` are kept in ``last_stats``."""
+        ids, dists, stats = anns(self.view, queries, k or self.k_default,
+                                 self.params, device=self.device)
+        self.last_stats = stats
+        io = np.asarray([s.block_reads for s in stats], np.int64)
+        return ids, dists, io
+
+    def cache_stats(self) -> Dict[str, float]:
+        """Lifetime cache counters of the shared store (empty if
+        uncached)."""
+        store = self.view.store
+        if not isinstance(store, CachedBlockStore):
+            return {}
+        t = store.total
+        return {"cache_hits": t.cache_hits,
+                "tier2_hits": t.tier2_hits,
+                "cache_misses": t.cache_misses,
+                "io_round_trips": t.io_round_trips,
+                "prefetched_blocks": t.prefetched_blocks,
+                "queue_fetches": t.queue_fetches,
+                "inflight_peak": t.inflight_peak,
+                "inflight_joins": t.inflight_joins,
+                "completion_reorders": t.completion_reorders,
+                "hit_rate": t.cache_hit_rate}
+
+    # ------------------------------------- SegmentTarget capability hooks
+    def lifetime_stats(self) -> Dict[str, float]:
+        return self.cache_stats()
+
+    def demand_feed(self):
+        store = self.view.store
+        return store if isinstance(store, CachedBlockStore) else None
+
+
+def attach_shared_fetch_queue(servers: Sequence["HostSegmentServer"],
+                              depth: int = 8,
+                              scheduler=None) -> AsyncFetchQueue:
+    """Share one ``AsyncFetchQueue`` across every cache-fronted target
+    (any whose ``demand_feed()`` yields a ``CachedBlockStore``): a demand
+    read arriving while its block is in flight joins the ticket instead
+    of issuing a new round trip. Each store drains its private queue
+    first. ``scheduler`` (a ``RepackScheduler``) also registers every
+    attached store as a demand feed. Returns the queue."""
+    q = AsyncFetchQueue(depth=depth)
+    attached = 0
+    for s in servers:
+        store = tgt.demand_feed(s)
+        if isinstance(store, CachedBlockStore):
+            store.attach_queue(q)
+            if scheduler is not None:
+                scheduler.attach_feed(store)
+            attached += 1
+    if attached == 0:
+        raise ValueError("no cache-fronted serving targets to attach "
+                         "the shared fetch queue to")
+    return q
+
+
+class QueryCoordinator:
+    """Scatter -> per-segment search -> hierarchical merge.
+
+    ``prune_fn(queries)`` picks the segment indices a batch goes to (all
+    by default). ``scheduler`` (a ``serving.scheduler.RepackScheduler``)
+    makes the coordinator the serving plane's control point: targets
+    whose ``repack_source()`` yields a host ``Segment`` register as
+    repack targets, those whose ``demand_feed()`` yields a cached store
+    as demand feeds, and after every served batch the coordinator notes
+    the device columns and lets the scheduler evaluate; a repack lands
+    after the batch has returned. The coordinator speaks only the
+    ``SegmentTarget`` protocol (``serving.target``). It takes no tracer
+    or metrics registry: the JAX coordinator's observability hooks are
+    not ported yet."""
+
+    def __init__(self, servers: List[tgt.SegmentTarget],
+                 prune_fn: Optional[Callable] = None,
+                 scheduler=None):
+        self.servers = servers
+        self.prune_fn = prune_fn          # (queries) -> segment indices
+        self.scheduler = scheduler
+        self._cache_seen: Dict[int, Tuple[int, int]] = {}  # per-server
+        #   (hits, misses) lifetime watermark for per-call delta reporting
+        for s in servers:
+            if scheduler is not None:
+                if tgt.repack_source(s) is not None:
+                    scheduler.attach_target(s)
+                feed = tgt.demand_feed(s)
+                if feed is not None:
+                    scheduler.attach_feed(feed)
+
+    # every search() stats dict carries all of these keys, zeros
+    # included; "repack" appears on batches where the scheduler
+    # evaluated
+    STATS_SCHEMA = ("segments_searched", "total_block_reads",
+                    "mean_block_reads_per_query", "total_tier0_hits",
+                    "total_dedup_saved", "total_dedup_cross",
+                    "total_spec_hits", "total_spec_wasted",
+                    "total_hot_tier_hits", "deduped_block_reads",
+                    "cache_hits", "cache_misses", "cache_hit_rate")
+
+    def search(self, queries: np.ndarray, k: int = 10
+               ) -> Tuple[np.ndarray, np.ndarray, Dict]:
+        targets = (self.prune_fn(queries) if self.prune_fn
+                   else list(range(len(self.servers))))
+        ids, dists, offs = [], [], []
+        total_io, total_t0, total_saved, total_cross = 0, 0, 0, 0
+        total_spec_h, total_spec_w, total_hot = 0, 0, 0
+        for si in targets:
+            s = self.servers[si]
+            i, d, io = s.search(queries, k)
+            ids.append(i)
+            dists.append(d)
+            offs.append(s.offset)
+            total_io += int(io.sum())
+            bs = tgt.batch_stats(s)
+            if bs:
+                total_t0 += int(np.asarray(bs["tier0_hits"]).sum())
+                total_saved += int(np.asarray(bs["dedup_saved"]).sum())
+                total_cross += int(np.asarray(bs["dedup_cross"]).sum())
+                total_spec_h += int(np.asarray(bs["spec_hits"]).sum())
+                total_spec_w += int(np.asarray(bs["spec_wasted"]).sum())
+                total_hot += int(np.asarray(bs["hot_tier_hits"]).sum())
+        gi, gd = merge_topk(ids, dists, offs, k)
+        stats = {"segments_searched": len(targets),
+                 "total_block_reads": total_io,
+                 "mean_block_reads_per_query":
+                     total_io / max(queries.shape[0], 1),
+                 # block touches the device tier-0 pack absorbed (not in
+                 # total_block_reads)
+                 "total_tier0_hits": total_t0,
+                 # cold touches that rode another query's same-round
+                 # gather; deduped_block_reads is what the device issued
+                 "total_dedup_saved": total_saved,
+                 "total_dedup_cross": total_cross,
+                 "total_spec_hits": total_spec_h,
+                 "total_spec_wasted": total_spec_w,
+                 # vertex visits the in-memory hot tier absorbed
+                 "total_hot_tier_hits": total_hot,
+                 "deduped_block_reads": total_io - total_saved}
+        # shared-cache counters of the servers that expose them, as
+        # deltas, so every key is per call (the cache stays warm)
+        hits = misses = 0
+        for si in targets:
+            cs = tgt.lifetime_stats(self.servers[si])
+            before = self._cache_seen.get(si, (0, 0))
+            # tier-2 summary hits count as hits: they avoid the disk trip
+            now = (cs.get("cache_hits", 0) + cs.get("tier2_hits", 0),
+                   cs.get("cache_misses", 0))
+            self._cache_seen[si] = now
+            hits += now[0] - before[0]
+            misses += now[1] - before[1]
+        stats["cache_hits"] = hits
+        stats["cache_misses"] = misses
+        stats["cache_hit_rate"] = (hits / (hits + misses)
+                                   if hits or misses else 0.0)
+        # fold this batch's device columns into the scheduler's window
+        # and let it evaluate on its own cadence
+        if self.scheduler is not None:
+            self.scheduler.note_batch([self.servers[si] for si in targets])
+            decision = self.scheduler.maybe_repack()
+            if decision is not None:
+                stats["repack"] = {
+                    "repacked": decision.repacked,
+                    "changed_slots": decision.changed_slots,
+                    "max_drift": decision.max_drift,
+                    "tier0_hit_rate": decision.tier0_hit_rate,
+                    "modeled_step_us": decision.modeled_step_us}
+        return gi, gd, stats

@@ -353,8 +353,17 @@ def test_port_built_segment_serves_in_jax(small_data, t_segment, tmp_path):
 
 
 def test_build_segment_refuses_the_host_cache(small_data):
+    """The host block cache is ported: where ``build_segment`` refused a
+    cache budget, it now fronts the view's store with the cache
+    (``io.cached_store``) and charges its budget as C_cache."""
+    from repro_torch.io.cached_store import CachedBlockStore
     x, _ = small_data
     p = dataclasses.replace(TP.SEGMENT_BENCH,
                             cache=TP.CacheParams(budget_frac=0.1))
-    with pytest.raises(NotImplementedError):
-        TS.build_segment(x[:100], p, device=CPU)
+    seg = TS.build_segment(x[:100], p, device=CPU)
+    store = seg.view.store
+    assert isinstance(store, CachedBlockStore)
+    assert store.memory_bytes() == int(0.1 * seg.disk_bytes())
+    plain = dataclasses.replace(seg, view=dataclasses.replace(
+        seg.view, store=store.base))
+    assert seg.memory_bytes() == plain.memory_bytes() + store.memory_bytes()

@@ -354,6 +354,16 @@ def test_presets_match_jax():
     for f in ("num_subspaces", "num_centroids", "train_iters",
               "train_sample", "seed"):
         assert getattr(seg.pq, f) == getattr(SEGMENT_BENCH_DEVICE.pq, f)
+    # the serving plane's presets: the host search's knobs, the block
+    # cache's and the repack scheduler's
+    from repro.configs import starling_segment as JSS
+    for name in ("SEGMENT_BENCH", "SEGMENT_BENCH_CACHED",
+                 "SEGMENT_BENCH_ASYNC", "SEGMENT_BENCH_DEVICE"):
+        t, j = getattr(TP, name), getattr(JSS, name)
+        assert dataclasses.asdict(t.search) == dataclasses.asdict(j.search)
+        assert dataclasses.asdict(t.cache) == dataclasses.asdict(j.cache)
+    assert dataclasses.asdict(TP.SERVE_REPACK) == dataclasses.asdict(
+        JSS.SERVE_REPACK)
 
 
 # ---------------------------------------------------------- range search

@@ -31,7 +31,11 @@ def test_port_has_files():
     for mod in ("io/hottier.py", "kernels/block_topk.py",
                 "core/navgraph.py", "core/device_search.py",
                 "serving/coordinator.py", "core/iostats.py",
-                "obs/__init__.py", "obs/roundlog.py"):
+                "obs/__init__.py", "obs/roundlog.py", "core/search.py",
+                "io/cache.py", "io/cached_store.py", "io/async_fetch.py",
+                "io/prefetch.py", "serving/target.py",
+                "serving/batcher.py", "serving/scheduler.py",
+                "obs/calibrate.py"):
         assert pkg / mod in FILES
 
 
