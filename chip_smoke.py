@@ -6,10 +6,12 @@
 It drives the port's paths — the segment build
 (``core.segment.build_segment``), the batched device search as
 ``SegmentServer.search`` serves it, the range search, the online tier-0
-repack, the hybrid hot tier with inserts and tombstones, and the serving
+repack, the hybrid hot tier with inserts and tombstones, the serving
 plane (the cache-fronted host block search, the coordinator, the request
-batcher and the repack scheduler) — on a 1,000,000 x 128 segment built
-from seeded clustered vectors, and checks them:
+batcher and the repack scheduler), the build variants (the k-means
+packer, HNSW, BNS), the DiskANN-style baseline and the delta segment
+with its compaction and serving swaps — on a 1,000,000 x 128 segment
+built from seeded clustered vectors, and checks them:
 
   1. card: name and power limit (``nvidia-smi``);
   2. build kernels: compiles every source of ``kernels/csrc`` (one
@@ -119,11 +121,46 @@ from seeded clustered vectors, and checks them:
      median; a repack must fire at its interval, and the batch before it
      served again after it returns the same ids and dists with more
      ``total_tier0_hits`` and fewer ``total_block_reads``;
- 14. summary: the launches of every kernel by phase (the build, Vamana,
-     each window of phases 6-13; phase 5's comparisons and phase 13's
-     CPU comparison and timing are not counted) and in total; one JSON
-     line of the kernels with the totals, the card line, and last
-     ``{"ok": true, "device": {...}}``.
+ 14. build variants: the k-means packer (``layout.layout_kmeans``,
+     k = ρ/4 centroids, 8 Lloyd steps, the assignment through
+     ``l2_tile`` in row chunks) on phase 3's 1M graph — seconds,
+     ``l2_tile``'s launches (one a chunk a step), OR(G) beside BNP's and
+     BNF's, the layout a bijection; HNSW (``graph.build_hnsw``) on the
+     first 20,000 vectors — level sizes (never increasing), each layer's
+     degrees and reachability, ``build_segment(algo="hnsw",
+     shuffle="bnf")`` (its disk graph HNSW's base layer) and 256 host
+     queries (recall@10, block reads), ``navgraph.from_hnsw_layers``
+     (its entry points sample ids); BNS at App. F's 1,200 vectors (BNF
+     with β = 8, then one BNS round): both OR(G)s and seconds, OR never
+     falling across BNS's history (Lemma 4.2);
+ 15. DiskANN baseline: an ID-contiguous segment on phase 3's graph;
+     ``baseline.vertex_anns`` on phase 13's 256 queries at Γ = 48, with
+     and without ``build_hot_cache(ratio=0.05)``, beside Starling's
+     uncached ``anns``: recall@10, block reads, hops, vertex
+     utilisation, ms per query, ``pq_adc``'s launches (at most one a
+     hop); the hot cache changes no result and raises no query's reads;
+     64 queries equal their ``device="cpu"`` run in ids, dists and every
+     ``IOStats`` field; ``vertex_range_search`` against ``range_search``
+     on 32 queries at phase 9's radius (block reads); the paper's claim
+     that the block search reads fewer blocks printed, not bounded;
+ 16. delta segment: ``DeltaSegment.wrap`` (a 10% hot tier), 256 inserts,
+     1% of the base ids and 16 inserted ones deleted, ``search`` on 256
+     queries (recall@10 against the live set's brute force, block reads,
+     ``hot_tier_hits``; no deleted id returned), 64 inserted vectors
+     queried back, 64 queries against the ``device="cpu"`` run (ids and
+     ``IOStats`` equal, distances within rtol 1e-5); ``compact()`` at
+     full size (stage times; the live count, reachability, no deleted
+     gid); ``swap_into_device_server`` under a ``RepackScheduler`` whose
+     window held entries past the new block count (dropped), one 1,024
+     batch served on the compacted segment (no deleted id, recall@10,
+     the round kernels' launches following the rounds);
+     ``swap_into_host_server``, whose 64 queries equal ``anns`` on the
+     compacted view;
+ 17. summary: the launches of every kernel by phase (the build, Vamana,
+     each window of phases 6-16; phase 5's comparisons and the CPU
+     comparisons and timings of phases 13, 15 and 16 are not counted)
+     and in total; one JSON line of the kernels with the totals, the card
+     line, and last ``{"ok": true, "device": {...}}``.
 
 Every served batch is checked: 10 distinct ids per query with ascending
 distances, each the exact distance of its id. recall@10 is printed, not
@@ -133,7 +170,7 @@ Any failed check exits non-zero, and so does a run without a CUDA card
 or from a directory without the port's package (``src/repro_torch``)
 beside the script. ``--device cpu --n 20000`` rehearses the whole script
 on the CPU with the plain versions (for rehearsal only; its Vamana phase
-then builds n/4 vectors).
+then builds n/4 vectors, its HNSW n/2).
 """
 from __future__ import annotations
 
@@ -181,6 +218,12 @@ HOST_QUERIES, HOST_CHECK = 256, 64   # phase 13's host search; on the CPU
 HOST_PROFILE = 32                    # phase 13's profiled host queries
 STREAM = 4096                        # phase 13's single requests
 WIDE_Q, WIDE_F = 128, 16   # tier0_fetch_rank's wide shape: F·ε = 96 slots
+KMEANS_ITERS = 8                     # phase 14: the k-means packer's steps
+HNSW_N = 20_000                      # phase 14: HNSW's size on the card
+BNS_N, BNF_ITERS = 1200, 8           # phase 14: App. F's BNS size and β
+BASE_CHECK, BASE_RANGE = 64, 32      # phase 15: CPU check; range queries
+DELTA_INSERTS, DELTA_DEAD_INSERTS = 256, 16   # phase 16's delta
+DELTA_SELF, DELTA_CHECK = 64, 64     # phase 16: queried back; CPU check
 
 
 class SmokeFailure(Exception):
@@ -361,13 +404,17 @@ def main() -> int:
     from repro_torch.core import graph as G
     from repro_torch.core import iostats as IO
     from repro_torch.core import layout as L
+    from repro_torch.core.baseline import (build_hot_cache, vertex_anns,
+                                           vertex_range_search)
+    from repro_torch.core.delta import (DeltaSegment, swap_into_device_server,
+                                        swap_into_host_server)
     from repro_torch.core import navgraph as NG
     from repro_torch.core.params import (SEGMENT_BENCH_ASYNC,
                                          SEGMENT_BENCH_CACHED,
                                          SEGMENT_BENCH_DEVICE,
                                          SERVE_DEVICE_SEARCH, SERVE_REPACK,
                                          HotTierParams)
-    from repro_torch.core.search import anns
+    from repro_torch.core.search import anns, range_search
     from repro_torch.core.segment import build_segment
     from repro_torch.data.vectors import clustered_vectors, query_set
     from repro_torch.io.cached_store import cached_view
@@ -1608,6 +1655,368 @@ def main() -> int:
               and st1["total_block_reads"] < st0["total_block_reads"],
               "the repack did not move touches into tier 0")
         del feed, feed_view, coord, srv_s
+
+    with phase("14 build variants"):
+        # the k-means packer at full size on phase 3's graph (App. G)
+        eps = seg.vid.shape[1]
+        k_cent = max(-(-args.n // eps) // 4, 1)
+        sync(device)
+        t0 = time.perf_counter()
+        lay_k = L.layout_kmeans(x, seg.graph, eps, iters=KMEANS_ITERS,
+                                device=device)
+        sync(device)
+        km_s = time.perf_counter() - t0
+        got = take("14 k-means")
+        lay_k.validate()
+        chunk = max(1, L._KMEANS_ELEMS[device.type] // k_cent)
+        want_l2 = KMEANS_ITERS * -(-args.n // chunk)
+        or_k = L.overlap_ratio(seg.graph, lay_k)
+        print(f"  k-means packer: k={k_cent} centroids, {KMEANS_ITERS} "
+              f"iterations, {km_s:.3f} s; l2_tile launches {got['l2_tile']}"
+              f" ({KMEANS_ITERS} x {-(-args.n // chunk)} row chunks of "
+              f"{chunk}); OR(G) k-means {or_k:.4f}, BNP {hist[0]:.4f}, BNF "
+              f"rounds {[round(h, 4) for h in hist[1:]]}")
+        if on_card:
+            check(got["l2_tile"] == want_l2,
+                  "the k-means assignment's l2_tile launches do not follow "
+                  "its chunks")
+        del lay_k
+
+        # HNSW on the first HNSW_N vectors (Fig. 16): the layers, then a
+        # segment over its base layer and host queries
+        nh = HNSW_N if on_card else min(HNSW_N, args.n // 2)
+        xh = np.ascontiguousarray(x[:nh])
+        p_h = dataclasses.replace(
+            params, graph=dataclasses.replace(params.graph, algo="hnsw"),
+            layout=dataclasses.replace(params.layout, shuffle="bnf"))
+        sync(device)
+        t0 = time.perf_counter()
+        hg = G.build_hnsw(xh, p_h.graph, device=device)
+        sync(device)
+        hn_s = time.perf_counter() - t0
+        got = take("14 hnsw")
+        sizes = [int(ids.size) for ids in hg.level_ids]
+        print(f"  build_hnsw n={nh}: {hn_s:.3f} s, level sizes {sizes}; "
+              f"l2_tile launches {got['l2_tile']}")
+        check(sizes == sorted(sizes, reverse=True) and sizes[0] == nh,
+              "HNSW level sizes increase with the level")
+        for lv, (lg, ids) in enumerate(zip(hg.layers, hg.level_ids)):
+            check_graph(lg, f"hnsw level {lv}")
+            print(f"    level {lv}: {ids.size} vertices, degree cap "
+                  f"{lg.max_degree}, avg {lg.avg_degree():.3f}, max "
+                  f"{int(lg.deg.max())}; every vertex reachable")
+        if on_card:
+            check(got["l2_tile"] > 0, "the HNSW build launched no l2_tile")
+        sync(device)
+        t0 = time.perf_counter()
+        seg_h = build_segment(xh, p_h, device=device)
+        sync(device)
+        got = take("14 hnsw segment")
+        print(f"  build_segment(algo=hnsw, shuffle=bnf): "
+              f"{time.perf_counter() - t0:.3f} s "
+              f"({ {k: round(v, 3) for k, v in seg_h.build_times.items()} });"
+              f" OR(G) {seg_h.overlap_ratio:.4f}; l2_tile launches "
+              f"{got['l2_tile']}")
+        check(np.array_equal(seg_h.adj, hg.base.adj)
+              and np.array_equal(seg_h.deg, hg.base.deg),
+              "the segment's disk graph is not HNSW's base layer")
+        seg_h.layout.validate()
+        qh = query_set(xh, HOST_QUERIES, seed=7)
+        truth_q = D.brute_force_knn(torch.as_tensor(xh, device=device), qh,
+                                    10, device=device)
+        take("14 hnsw oracle")
+        t0 = time.perf_counter()
+        ids_q, d_q, st_q = anns(seg_h.view, qh, 10, seg_h.params.search,
+                                device=device)
+        ms_q = (time.perf_counter() - t0) * 1e3
+        got = take("14 hnsw queries")
+        check_results(qh, ids_q, d_q, torch.as_tensor(xh, device=device))
+        print(f"  {HOST_QUERIES} host queries: recall@10 "
+              f"{recall(ids_q, truth_q):.4f}, block_reads "
+              f"{np.mean([s.block_reads for s in st_q]):.3f}, hops "
+              f"{np.mean([s.hops for s in st_q]):.3f} per query, "
+              f"{ms_q / HOST_QUERIES:.3f} ms per query; launches {got}")
+        nav_h = NG.from_hnsw_layers(xh, hg, params.nav, device=device)
+        ep = nav_h.entry_points(qh, beam=16, num=4, device=device)
+        take("14 hnsw navigation")
+        upper = hg.level_ids[1] if len(hg.layers) > 1 else None
+        if upper is not None:
+            check(np.array_equal(nav_h.sample_ids, upper),
+                  "from_hnsw_layers does not hold level 1")
+        check(bool(np.isin(ep, nav_h.sample_ids).all()),
+              "an HNSW entry point is not a sample id")
+        print(f"  from_hnsw_layers: {nav_h.sample_ids.size} vertices "
+              f"(level 1), degree {nav_h.graph.max_degree}, "
+              f"{nav_h.memory_bytes()} B; entry points of {qh.shape[0]} "
+              f"queries all sample ids")
+        del hg, seg_h, nav_h, xh
+
+        # BNS at App. F's size: BNF (β = 8) as its start, one BNS round
+        xs_ = np.ascontiguousarray(x[:BNS_N])
+        gb = G.build_graph(xs_, SEGMENT_BENCH_DEVICE.graph, device=device)
+        take("14 bns graph")
+        t0 = time.perf_counter()
+        lay_f, hist_f = L.layout_bnf(gb, eps, iters=BNF_ITERS)
+        bnf_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lay_s, hist_s = L.layout_bns(gb, eps, iters=1, init=lay_f)
+        bns_s = time.perf_counter() - t0
+        lay_s.validate()
+        print(f"  BNS n={BNS_N} (Vamana, eps={eps}): BNF OR(G) "
+              f"{L.overlap_ratio(gb, lay_f):.4f} in {bnf_s:.3f} s (rounds "
+              f"{[round(h, 4) for h in hist_f]}); BNS OR(G) "
+              f"{hist_s[-1]:.4f} in {bns_s:.3f} s (history "
+              f"{[round(h, 4) for h in hist_s]})")
+        check(all(b >= a - 1e-9 for a, b in zip(hist_s, hist_s[1:])),
+              "OR(G) fell across BNS's history (Lemma 4.2)")
+        take("14 bns")
+        del gb, xs_
+
+    with phase("15 diskann baseline"):
+        # the ID-contiguous baseline segment on phase 3's graph
+        p_b = dataclasses.replace(params, layout=dataclasses.replace(
+            params.layout, shuffle="none"))
+        sync(device)
+        t0 = time.perf_counter()
+        seg_b = build_segment(x, p_b, graph=seg.graph, device=device)
+        sync(device)
+        take("15 baseline segment")
+        print(f"  baseline segment (layout none, phase 3's graph): "
+              f"{time.perf_counter() - t0:.3f} s, OR(G) "
+              f"{seg_b.overlap_ratio:.4f}")
+        sp = params.search
+        sp_b = dataclasses.replace(sp, use_block_search=False,
+                                   use_nav_graph=False)
+        t0 = time.perf_counter()
+        hot_b = build_hot_cache(seg_b.view, ratio=0.05)
+        print(f"  build_hot_cache(0.05): {len(hot_b)} vertices in "
+              f"{time.perf_counter() - t0:.3f} s")
+        runs = {}
+
+        def host_run(name, fn):
+            t0 = time.perf_counter()
+            ids_, d_, st_ = fn()
+            ms_ = (time.perf_counter() - t0) * 1e3
+            got_ = take(f"15 {name}")
+            check_results(host_q, ids_, d_)
+            used = sum(s.vertices_used for s in st_)
+            fetched = sum(s.vertices_fetched for s in st_)
+            print(f"  {name}: recall@10 {recall(ids_, truth_h):.4f}; per "
+                  f"query block_reads "
+                  f"{np.mean([s.block_reads for s in st_]):.3f}, hops "
+                  f"{np.mean([s.hops for s in st_]):.3f}, pq_comps "
+                  f"{np.mean([s.pq_comps for s in st_]):.3f}; vertex "
+                  f"utilisation {used / max(fetched, 1):.4f}; "
+                  f"{ms_ / len(st_):.3f} ms per query; pq_adc launches "
+                  f"{got_['pq_adc']}")
+            if on_card:
+                check(len(st_) < got_["pq_adc"]
+                      <= len(st_) + sum(s.hops for s in st_),
+                      f"{name}: pq_adc launches do not follow the hops")
+            runs[name] = (ids_, d_, st_)
+
+        host_run("baseline", lambda: vertex_anns(
+            seg_b.view, host_q, 10, sp_b, device=device))
+        host_run("baseline hot cache", lambda: vertex_anns(
+            seg_b.view, host_q, 10, sp_b, hot=hot_b, device=device))
+        host_run("starling", lambda: anns(seg.view, host_q, 10, sp,
+                                          device=device))
+        (ia, da, sa), (ib, db, sb) = (runs["baseline"],
+                                      runs["baseline hot cache"])
+        check(np.array_equal(ia, ib) and np.array_equal(da, db),
+              "the hot cache changed an id or a distance")
+        check(all(b_.block_reads <= a.block_reads for a, b_ in zip(sa, sb)),
+              "the hot cache raised a query's block_reads")
+        sub = host_q[:BASE_CHECK]
+        outs = {dn: vertex_anns(seg_b.view, sub, 10, sp_b, device=dn)
+                for dn in (args.device, "cpu")}
+        (ia, da, sa), (ib, db, sb) = outs[args.device], outs["cpu"]
+        check(np.array_equal(ia, ib) and np.array_equal(da, db)
+              and all(dataclasses.asdict(a) == dataclasses.asdict(b_)
+                      for a, b_ in zip(sa, sb)),
+              "the baseline on the card differs from its CPU run")
+        print(f"  baseline on the card equals its device=cpu run on "
+              f"{BASE_CHECK} queries: ids, dists and every IOStats field")
+        K.reset_all_launches()          # the comparison: not counted
+        sub = host_q[:BASE_RANGE]
+        t0 = time.perf_counter()
+        _, st_vr = vertex_range_search(seg_b.view, sub, radius, sp_b,
+                                       device=device)
+        ms_vr = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        _, st_rs = range_search(seg.view, sub, radius, sp, device=device)
+        ms_rs = (time.perf_counter() - t0) * 1e3
+        take("15 range")
+        print(f"  range search, {BASE_RANGE} queries at phase 9's radius: "
+              f"block_reads per query baseline (repeated ANNS) "
+              f"{np.mean([s.block_reads for s in st_vr]):.3f} in "
+              f"{ms_vr:.3f} ms, Starling "
+              f"{np.mean([s.block_reads for s in st_rs]):.3f} in "
+              f"{ms_rs:.3f} ms")
+        br = {n_: np.mean([s.block_reads for s in r[2]])
+              for n_, r in runs.items()}
+        print(f"  the paper's claim (printed, not bounded): Starling reads "
+              f"fewer blocks per query than the baseline: "
+              f"{br['starling']:.3f} against {br['baseline']:.3f} "
+              f"({'holds' if br['starling'] < br['baseline'] else 'fails'}"
+              f" here)")
+        del seg_b, hot_b, runs, outs
+
+    with phase("16 delta segment"):
+        sync(device)
+        t0 = time.perf_counter()
+        dl = DeltaSegment.wrap(seg, HotTierParams(budget_frac=0.10),
+                               device=args.device)
+        sync(device)
+        take("16 wrap")
+        print(f"  wrap: hot tier of {dl.hot.size} vectors in "
+              f"{time.perf_counter() - t0:.3f} s")
+        ins = new_v[:DELTA_INSERTS]
+        sync(device)
+        t0 = time.perf_counter()
+        gids_d = dl.insert(ins)
+        sync(device)
+        ins_s = time.perf_counter() - t0
+        take("16 inserts")
+        dead_ins = gids_d[::DELTA_INSERTS // DELTA_DEAD_INSERTS]
+        for g in dead:
+            check(dl.delete(int(g)), "a base delete failed")
+        for g in dead_ins:
+            check(dl.delete(int(g)), "an insert's delete failed")
+        gone = set(dead.tolist()) | set(dead_ins.tolist())
+        print(f"  insert {DELTA_INSERTS}: {ins_s:.3f} s "
+              f"({ins_s / DELTA_INSERTS * 1e3:.3f} ms each); deleted "
+              f"{dead.size} base ids and {dead_ins.size} inserted; "
+              f"num_deleted {dl.num_deleted}, live_count {dl.live_count}")
+        check(dl.num_deleted == len(gone)
+              and dl.live_count == args.n + DELTA_INSERTS - len(gone),
+              "the delta's census is off")
+        x_live, live_g = dl.live_vectors()
+        x_live_t = torch.as_tensor(x_live, device=device)
+        truth_d = live_g[D.brute_force_knn(x_live_t, host_q, 10,
+                                           device=device)]
+        take("16 oracle")
+        sp = params.search
+        t0 = time.perf_counter()
+        ids_d, d_d, st_d = dl.search(host_q, 10, sp)
+        ms_d = (time.perf_counter() - t0) * 1e3
+        got = take("16 search")
+        gid_vecs = np.concatenate([x, new_v[:DELTA_INSERTS]])
+        check_results(host_q, ids_d, d_d,
+                      torch.as_tensor(gid_vecs, device=device))
+        check(not np.isin(ids_d, list(gone)).any(),
+              "the delta returned a tombstoned id")
+        print(f"  search {HOST_QUERIES} queries: recall@10 "
+              f"{recall(ids_d, truth_d):.4f} (live-set brute force); per "
+              f"query block_reads "
+              f"{np.mean([s.block_reads for s in st_d]):.3f}, hot_tier_hits "
+              f"{np.mean([s.hot_tier_hits for s in st_d]):.3f}; "
+              f"{ms_d / HOST_QUERIES:.3f} ms per query; launches {got}")
+        if on_card:
+            check(got["pq_adc"] > HOST_QUERIES,
+                  "the delta's search launched no pq_adc a hop")
+        live_ins = np.setdiff1d(gids_d, dead_ins)[:DELTA_SELF]
+        selfq = gid_vecs[live_ins]
+        ids_s, d_s, _ = dl.search(selfq, 10, sp)
+        take("16 self queries")
+        found = (ids_s[:, 0] == live_ins) & (d_s[:, 0] == 0)
+        print(f"  {live_ins.size} inserted vectors queried back: "
+              f"{found.mean():.4f} found first at distance 0")
+        check(not np.isin(ids_s, list(gone)).any(),
+              "the delta returned a tombstoned id")
+        sub = host_q[:DELTA_CHECK]
+        cpu_dl = dataclasses.replace(dl, device="cpu", hot=dataclasses.replace(
+            dl.hot, device="cpu", _mirror=None))
+        (ia, da, sa) = dl.search(sub, 10, sp)
+        (ib, db, sb) = cpu_dl.search(sub, 10, sp)
+        bits = float((da.view(np.uint32) == db.view(np.uint32)).mean())
+        check(np.array_equal(ia, ib)
+              and np.allclose(da, db, rtol=1e-5, atol=1e-4)
+              and all(dataclasses.asdict(a) == dataclasses.asdict(b_)
+                      for a, b_ in zip(sa, sb)),
+              "the delta's search on the card differs from its CPU run")
+        print(f"  delta search on the card equals its device=cpu run on "
+              f"{DELTA_CHECK} queries: ids and every IOStats field; "
+              f"distances within rtol 1e-5, {bits:.4f} of them bit-equal "
+              f"(the hot route's torch sums)")
+        K.reset_all_launches()          # the comparison: not counted
+        del cpu_dl
+
+        # compaction at full size, then the swaps
+        t0 = time.perf_counter()
+        comp, cgids = dl.compact()
+        comp_s = time.perf_counter() - t0
+        take("16 compaction")
+        bt_c = comp.build_times
+        print(f"  compact(): {comp_s:.3f} s "
+              f"({ {k: round(v, 3) for k, v in bt_c.items()} }); "
+              f"{comp.num_vectors} vectors, {comp.num_blocks} blocks "
+              f"(base {seg.num_blocks}); OR(G) {comp.overlap_ratio:.4f}")
+        check(comp.num_vectors == dl.live_count == cgids.size,
+              "the compaction lost or added vectors")
+        check(not np.isin(cgids, list(gone)).any(),
+              "a tombstoned gid survived the compaction")
+        check(np.array_equal(cgids, live_g), "gids are not the live set's")
+        check_graph(comp.graph, "compacted graph")
+        comp.layout.validate()
+
+        srv_d = SegmentServer(segment=ds, offset=0,
+                              num_vectors=seg.num_vectors, params=p,
+                              device=args.device, host=seg)
+        sched = RepackScheduler(SERVE_REPACK)
+        sched.attach_target(srv_d)
+        # observed demand on the old layout's tail, at and past the
+        # compacted block count (or past it by 8 when the compaction
+        # grew the segment), beside entries that stay valid
+        new_total, old_total = comp.num_blocks, seg.num_blocks
+        sched._window.update({b: 5 for b in range(
+            new_total - 8, max(old_total, new_total + 8))})
+        sched._window.update({0: 3, 1: 2})
+        stale = sum(1 for b in sched._window if b >= new_total)
+        t0 = time.perf_counter()
+        swap_into_device_server(srv_d, comp, scheduler=sched)
+        sync(device)
+        print(f"  swap_into_device_server: {time.perf_counter() - t0:.3f} "
+              f"s; the window held {stale} entries at or past the new "
+              f"block count {new_total}, now {len(sched._window)} entries")
+        check(stale > 0 and all(0 <= b < new_total for b in sched._window)
+              and len(sched._window) == 10 and sched._window[0] == 3
+              and sched._window[1] == 2,
+              "the swap left stale window entries or dropped valid ones")
+        take("16 swap")
+        qc = query_set(x, BATCH, seed=10)
+        ids_c, d_c, ms_c = serve(qc, srv_d)
+        st_c = srv_d.batch_stats()
+        got = take("16 compacted serve")
+        check_results(qc, ids_c, d_c, x_live_t)
+        gid_c = cgids[ids_c]
+        check(not np.isin(gid_c, list(gone)).any(),
+              "the compacted segment served a tombstoned id")
+        truth_c = D.brute_force_knn(x_live_t, qc, 10, device=device)
+        take("16 oracle")
+        print(f"  {BATCH} queries on the compacted segment: {ms_c:.3f} ms,"
+              f" rounds {st_c['rounds']}, io {st_c['io'].mean():.3f}; "
+              f"recall@10 {recall(ids_c, truth_c):.4f} (live-set brute "
+              f"force); launches {got}")
+        if on_card:
+            check(got["gather_union"] == st_c["rounds"] > 0
+                  and got["fused_round_rank"] == st_c["rounds"],
+                  "compacted-serve launches do not follow the rounds")
+        hs = HostSegmentServer.from_segment(seg, 0, device=args.device)
+        swap_into_host_server(hs, comp, scheduler=sched)
+        sub = host_q[:DELTA_CHECK]
+        ids_hs, d_hs, _ = hs.search(sub)
+        want_i, want_d, want_s = anns(comp.view, sub, 10, comp.params.search,
+                                      device=device)
+        take("16 host swap")
+        check(np.array_equal(ids_hs, want_i) and np.array_equal(d_hs, want_d)
+              and all(dataclasses.asdict(a) == dataclasses.asdict(b_)
+                      for a, b_ in zip(hs.last_stats, want_s)),
+              "the swapped host server differs from anns on the compacted "
+              "view")
+        print(f"  swap_into_host_server: {DELTA_CHECK} queries equal anns "
+              f"on the compacted view")
+        del dl, comp, srv_d, hs, x_live_t
 
     total = {name: sum(c[name] for c in by_phase.values())
              for name in KERNELS}

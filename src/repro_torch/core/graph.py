@@ -1,5 +1,5 @@
-"""Graph-index construction: Vamana and NSG (port of ``repro.core.
-graph``).
+"""Graph-index construction: Vamana, NSG and HNSW (port of ``repro.
+core.graph``).
 
 The graph is the JAX package's: ``adj [N, Λ] int32`` padded with -1 and
 ``deg [N] int32`` on the host, with the medoid as entry. What runs where:
@@ -25,13 +25,16 @@ The one known difference: ``_ensure_reachable`` ranks hosts with a
 stable sort where the JAX package uses numpy's unstable ``argsort``, so
 on exact ties it may pick another host.
 
-HNSW is not ported (``build_hnsw`` raises).
+HNSW (``build_hnsw``) draws its levels with the JAX package's generator
+and formula and builds each layer with ``build_vamana`` or ``build_nsg``
+at the JAX package's degree caps, so its layers equal JAX's whenever
+those builds do.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -519,8 +522,52 @@ def _nearest_hosts(xt: torch.Tensor, us: np.ndarray, hosts: torch.Tensor,
 
 # ---------------------------------------------------------------- entry
 
-def build_hnsw(x, p: GraphParams, metric: str = "l2", device="cuda"):
-    raise NotImplementedError("HNSW is not ported yet (ROADMAP A1)")
+@dataclasses.dataclass
+class HNSWGraph:
+    """Multi-layer structure; ``layers[0]`` is the (disk) base graph and
+    ``layers[1:]`` + ``level_ids`` form the in-memory upper layers."""
+    layers: List[Graph]
+    level_ids: List[np.ndarray]   # global ids of vertices on each level
+    metric: str = "l2"
+
+    @property
+    def base(self) -> Graph:
+        return self.layers[0]
+
+
+def build_hnsw(x: np.ndarray, p: GraphParams, metric: str = "l2",
+               level_mult: Optional[float] = None, device="cuda",
+               stats: Optional[dict] = None) -> HNSWGraph:
+    """HNSW's layers: vertex levels drawn as ``floor(-ln U · m_L)``
+    (m_L = 1/ln Λ, capped at 6) from the seeded generator; level ``lv``
+    holds every vertex of level >= lv, and its graph is Vamana at degree
+    Λ (level 0 above 512 vertices) or NSG (degree max(Λ/2, 4) above
+    level 0), built on ``device``. ``stats`` receives the base layer's
+    build counters."""
+    n = x.shape[0]
+    rng = np.random.default_rng(p.seed)
+    m = p.max_degree
+    level_mult = level_mult or 1.0 / np.log(max(m, 2))
+    levels = np.minimum(
+        (-np.log(rng.uniform(size=n) + 1e-12) * level_mult).astype(np.int32),
+        6)
+    layers: List[Graph] = []
+    level_ids: List[np.ndarray] = []
+    for lv in range(int(levels.max()) + 1):
+        ids = np.where(levels >= lv)[0].astype(np.int32)
+        if ids.size < 2:
+            break
+        sub = x[ids]
+        deg_cap = m if lv == 0 else max(m // 2, 4)
+        gp = dataclasses.replace(p, max_degree=deg_cap,
+                                 build_beam=max(p.build_beam, deg_cap))
+        st = stats if lv == 0 else None
+        g = (build_vamana(sub, gp, metric, device=device, stats=st)
+             if lv == 0 and ids.size > 512
+             else build_nsg(sub, gp, metric, device=device, stats=st))
+        layers.append(g)
+        level_ids.append(ids)
+    return HNSWGraph(layers=layers, level_ids=level_ids, metric=metric)
 
 
 def build_graph(x: np.ndarray, p: GraphParams, metric: str = "l2",
@@ -530,5 +577,5 @@ def build_graph(x: np.ndarray, p: GraphParams, metric: str = "l2",
     if p.algo == "nsg":
         return build_nsg(x, p, metric, device=device, stats=stats)
     if p.algo == "hnsw":
-        return build_hnsw(x, p, metric, device=device)
+        return build_hnsw(x, p, metric, device=device, stats=stats).base
     raise ValueError(p.algo)

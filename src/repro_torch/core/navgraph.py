@@ -3,8 +3,9 @@
 Sample μ·N vertices, build a graph index over the sample, and answer
 "give me entry points near q" without any disk I/O. Returned ids are in
 the full dataset's id space. ``subset_navgraph`` builds the same kind
-of graph over an explicit subset (the hot tier's). ``from_hnsw_layers``
-is not ported yet.
+of graph over an explicit subset (the hot tier's). For the HNSW variant
+the upper layers of the disk HNSW play this role (multi-layered
+navigation, Fig. 16(b)): ``from_hnsw_layers``.
 """
 from __future__ import annotations
 
@@ -78,3 +79,16 @@ def subset_navgraph(x: Optional[np.ndarray], ids: np.ndarray,
                      algo=algo, seed=seed)
     g = G.build_graph(sub, gp, metric, device=device)
     return NavGraph(graph=g, sample_ids=ids.astype(np.int32), vectors=sub)
+
+
+def from_hnsw_layers(x: np.ndarray, h: G.HNSWGraph, p: NavGraphParams,
+                     device="cuda") -> NavGraph:
+    """Starling-HNSW: the upper layers stay in memory as the navigation
+    structure, flattened into one sampled graph (the level-1 vertices
+    with the level-1 adjacency). Without an upper layer it falls back
+    to an NSG over the μ-sample (``build_navgraph``)."""
+    if len(h.layers) < 2:
+        return build_navgraph(x, p, h.metric, algo="nsg", device=device)
+    ids = h.level_ids[1]
+    return NavGraph(graph=h.layers[1], sample_ids=ids.astype(np.int32),
+                    vectors=np.ascontiguousarray(x[ids], np.float32))

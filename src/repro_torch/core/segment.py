@@ -2,8 +2,9 @@
 its build (``build_segment``) and its space accounting (Eq. 10).
 
 ``build_segment`` runs the offline pipeline of Eq. 8 — disk graph
-(Vamana or NSG), block shuffling (BNP, BNF, GP3), the navigation graph
-on the μ-sample (NSG), PQ — and returns a ``Segment`` ready for
+(Vamana, NSG, or HNSW's base layer), block shuffling (BNP, BNF, GP3,
+BNS or the k-means packer), the navigation graph on the μ-sample (NSG),
+PQ — and returns a ``Segment`` ready for
 ``device_search.from_segment``. Segments travel both ways between the
 packages: ``save_segment`` writes every key ``repro.core.segment.
 load_segment`` reads, and ``load_segment`` reads the ``.npz`` that
@@ -209,8 +210,10 @@ def _stage(times: Dict[str, float], name: str, t0: float,
 def build_segment(x: np.ndarray, params: SegmentParams,
                   graph: Optional[G.Graph] = None,
                   device="cuda") -> Segment:
-    """Build a segment over x [N, D]: disk graph (``params.graph.algo``,
-    unless ``graph`` is given), layout (``params.layout.shuffle``),
+    """Build a segment over x [N, D]: disk graph (``params.graph.algo``:
+    vamana | nsg | hnsw, whose base layer is the disk graph; unless
+    ``graph`` is given), layout (``params.layout.shuffle``: none | bnp |
+    bnf | gp3 | bns | kmeans, whose assignment runs on ``device``),
     navigation graph (NSG on the μ-sample), PQ, block store.
 
     ``build_times`` holds the seconds of each stage under the JAX keys
@@ -237,7 +240,7 @@ def build_segment(x: np.ndarray, params: SegmentParams,
                         bnf_iters=params.layout.bnf_iters,
                         bns_iters=params.layout.bns_iters,
                         tau=params.layout.gain_tau,
-                        history=info["or_history"])
+                        history=info["or_history"], device=dev)
     _stage(times, "shuffling_s", t0, dev)
     lay.validate()
 

@@ -133,8 +133,8 @@ class RepackScheduler:
 
     def note_layout_swap(self, server) -> None:
         """A compaction swapped a fresh ``Segment`` under ``server``
-        (the swap protocol of ``core.delta``, whose port comes later):
-        re-derive the target's
+        (``core.delta.swap_into_host_server`` /
+        ``swap_into_device_server``): re-derive the target's
         build-time ranking from the NEW layout and drop demand-window
         entries that index past the new block count — stale demand for
         since-compacted blocks must never reach a pack plan

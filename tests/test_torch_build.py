@@ -229,13 +229,241 @@ def test_layout_on_jax_small_segment_graph(small_segment):
                                   small_segment.view.layout.slot_of)
 
 
-def test_unported_schemes_raise(jax_vamana, xi):
+def _same_layout(got, want):
+    for f in ("blocks", "block_of", "slot_of"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+
+
+def _random_graph(n, deg, seed):
+    """``tests/test_layout.py``'s random graph (no self-loops)."""
+    rng = np.random.default_rng(seed)
+    adj = np.full((n, deg), -1, np.int32)
+    degs = rng.integers(1, deg + 1, size=n).astype(np.int32)
+    for u in range(n):
+        nbrs = rng.choice(n - 1, size=degs[u], replace=False)
+        nbrs[nbrs >= u] += 1
+        adj[u, : degs[u]] = nbrs
+    return adj, degs
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_layout_bns_lemma42_equals_jax(seed):
+    """Lemma 4.2 as ``tests/test_layout.py`` runs it: OR(G) never falls
+    across BNS's rounds, and the port's swaps are JAX's."""
+    adj, degs = _random_graph(60, 5, seed + 3)
+    want, wh = JL.layout_bns(JG.Graph(adj=adj, deg=degs, entry=0), eps=4,
+                             iters=3, tau=-1.0)
+    got, gh = TL.layout_bns(TG.Graph(adj=adj, deg=degs, entry=0), eps=4,
+                            iters=3, tau=-1.0)
+    _same_layout(got, want)
+    assert gh == wh
+    assert all(b >= a - 1e-9 for a, b in zip(gh, gh[1:]))
+
+
+def test_layout_bns_equals_jax(jax_vamana):
+    want, wh = JL.layout_bns(jax_vamana, 4, iters=1, tau=-1.0)
+    got, gh = TL.layout_bns(_tgraph(jax_vamana), 4, iters=1, tau=-1.0)
+    _same_layout(got, want)
+    assert gh == wh and gh[1] >= gh[0]
+    got.validate()
+
+
+def test_make_layout_bns_equals_jax(jax_vamana):
+    """``make_layout("bns")`` seeds BNS with BNF's layout; its history is
+    BNF's, then BNS's rounds."""
+    kw = dict(bnf_iters=2, bns_iters=1, tau=0.001)
+    hist = []
+    got = TL.make_layout(_tgraph(jax_vamana), 5, "bns", history=hist,
+                         device=CPU, **kw)
+    _same_layout(got, JL.make_layout(jax_vamana, 5, "bns", **kw))
+    _, bnf_hist = JL.layout_bnf(jax_vamana, 5, iters=2, tau=0.001)
+    assert hist[: len(bnf_hist)] == bnf_hist
+    assert len(hist) == len(bnf_hist) + 1
+    assert hist[-1] == JL.overlap_ratio(jax_vamana, JL.BlockLayout(
+        got.blocks, got.block_of, got.slot_of)) >= max(bnf_hist)
+
+
+@pytest.mark.parametrize("eps", [3, 5])
+def test_layout_kmeans_equals_jax_on_integer_data(xi, jax_vamana, eps,
+                                                  monkeypatch):
+    want = JL.layout_kmeans(xi, jax_vamana, eps)
     tg = _tgraph(jax_vamana)
-    for scheme in ("bns", "kmeans"):
-        with pytest.raises(NotImplementedError):
-            TL.make_layout(tg, 4, scheme, x=xi)
-    with pytest.raises(NotImplementedError):
-        TG.build_graph(xi, TP.GraphParams(algo="hnsw", **GP), device=CPU)
+    _same_layout(TL.layout_kmeans(xi, tg, eps, device=CPU), want)
+    # row chunks of the assignment change no bit (37 rows a chunk)
+    k = max(-(-xi.shape[0] // eps) // 4, 1)
+    with monkeypatch.context() as mp:
+        mp.setitem(TL._KMEANS_ELEMS, "cpu", 37 * k)
+        _same_layout(TL.layout_kmeans(xi, tg, eps, device=CPU), want)
+    hist = []
+    lay = TL.make_layout(tg, eps, "kmeans", x=xi, history=hist, device=CPU)
+    _same_layout(lay, JL.make_layout(jax_vamana, eps, "kmeans", x=xi))
+    lay.validate()
+    assert hist == [TL.overlap_ratio(tg, lay)]
+    with pytest.raises(ValueError):
+        TL.make_layout(tg, eps, "kmeans", device=CPU)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_cluster_means_bits_equal_mask_form(seed):
+    """The centroid update from one stable sort gives the bits of JAX's
+    per-cluster boolean mask, empty clusters left as they were."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((3000, 24)).astype(np.float32) * 7.3
+    k = 120
+    assign = rng.integers(0, k, 3000)
+    assign[assign == 17] = 18                         # an empty cluster
+    init = rng.standard_normal((k, 24)).astype(np.float32)
+    want = init.copy()
+    for c in range(k):
+        m = assign == c
+        if m.any():
+            want[c] = x[m].mean(axis=0)
+    got = init.copy()
+    TL.cluster_means(x, assign, got)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+# the share of float-data k-means assignments equal to JAX's (measured
+# 1.0 on both cases below; JAX's numpy matmul and the plain l2_tile sum
+# in other orders, so only a near-tie may go the other way)
+KMEANS_FLOAT_AGREE = 0.999
+
+
+@pytest.mark.parametrize("case", ["clustered", "gaussian"])
+def test_kmeans_assign_on_float_data_near_jax(case):
+    """One assignment step from the same centroids, then the whole
+    packer: every disagreement with JAX's ``argmin(pairwise)`` is a
+    near-tie (its two distances within 1e-5 relative), and the share of
+    equal assignments and block ids is bounded below."""
+    from repro.data.vectors import clustered_vectors
+    rng = np.random.default_rng(4)
+    x = (clustered_vectors(3000, 32, num_clusters=16, seed=4)
+         if case == "clustered"
+         else rng.standard_normal((3000, 32)).astype(np.float32))
+    cent = x[rng.choice(3000, 150, replace=False)]
+    dj = JD.pairwise(x, cent)
+    want = np.argmin(dj, axis=1)
+    got = TL.kmeans_assign(torch.as_tensor(x), cent)
+    off = np.flatnonzero(got != want)
+    assert (got == want).mean() >= KMEANS_FLOAT_AGREE
+    a, b = dj[off, got[off]], dj[off, want[off]]
+    assert np.all(np.abs(a - b) <= 1e-5 * np.maximum(np.abs(b), 1.0))
+    adj, degs = _random_graph(3000, 4, 0)
+    g = JG.Graph(adj=adj, deg=degs, entry=0)
+    lw = JL.layout_kmeans(x, g, 6, iters=4)
+    lg = TL.layout_kmeans(x, TG.Graph(adj=adj, deg=degs, entry=0), 6,
+                          iters=4, device=CPU)
+    assert (lg.block_of == lw.block_of).mean() >= KMEANS_FLOAT_AGREE
+
+
+@pytest.fixture(scope="module")
+def jax_hnsw(xi):
+    return JG.build_hnsw(xi, JGP(algo="hnsw", **GP))
+
+
+def test_build_hnsw_equals_jax(xi, jax_hnsw):
+    """Level sets from the same generator, Vamana at level 0 (800 > 512
+    vertices) and NSG above, each layer equal to JAX's."""
+    got = TG.build_hnsw(xi, TP.GraphParams(algo="hnsw", **GP), device=CPU)
+    assert len(got.layers) == len(jax_hnsw.layers) >= 3
+    for lg, lw, ig, iw in zip(got.layers, jax_hnsw.layers, got.level_ids,
+                              jax_hnsw.level_ids):
+        np.testing.assert_array_equal(ig, iw)
+        _same_graph(lg, lw)
+    sizes = [ids.size for ids in got.level_ids]
+    assert sizes == sorted(sizes, reverse=True)
+    assert got.base.max_degree == GP["max_degree"]
+    assert got.layers[1].max_degree == GP["max_degree"] // 2
+    base = TG.build_graph(xi, TP.GraphParams(algo="hnsw", **GP), device=CPU)
+    _same_graph(base, jax_hnsw.base)
+
+
+@pytest.mark.parametrize("upper", [True, False])
+def test_from_hnsw_layers_equals_jax(xi, jax_hnsw, upper):
+    """The level-1 layer as the navigation graph, or, with no upper
+    layer (every level 0), the NSG sample."""
+    p = dict(sample_ratio=0.25, max_degree=8, build_beam=16, seed=3)
+    h = jax_hnsw if upper else JG.build_hnsw(
+        xi[:300], JGP(algo="hnsw", **GP), level_mult=1e-9)
+    xs = xi if upper else xi[:300]
+    th = TG.HNSWGraph(layers=[_tgraph(g) for g in h.layers],
+                      level_ids=h.level_ids, metric=h.metric)
+    assert len(th.layers) == (3 if upper else 1)
+    want = JN.from_hnsw_layers(xs, h, JNP(**p))
+    got = TN.from_hnsw_layers(xs, th, TP.NavGraphParams(**p), device=CPU)
+    np.testing.assert_array_equal(got.sample_ids, want.sample_ids)
+    np.testing.assert_array_equal(got.vectors, want.vectors)
+    _same_graph(got.graph, want.graph)
+    q = _ints(20, 16, seed=9)
+    np.testing.assert_array_equal(got.entry_points(q, 12, 4, device=CPU),
+                                  want.entry_points(q, 12, 4))
+
+
+def _t_params_all(jp):
+    """Every field of a JAX ``SegmentParams`` in the port's classes."""
+    return TP.SegmentParams(**{
+        f.name: (getattr(TP, type(v).__name__)(**dataclasses.asdict(v))
+                 if dataclasses.is_dataclass(v) else v)
+        for f in dataclasses.fields(jp)
+        for v in [getattr(jp, f.name)]})
+
+
+def _same_segment(got, want):
+    """The port's ``Segment`` against a JAX one, stage by stage."""
+    _same_graph(got.graph, want.graph)
+    _same_layout(got.layout, want.view.layout)
+    for f in ("vid", "vecs", "meta"):
+        np.testing.assert_array_equal(getattr(got, f),
+                                      getattr(want.view.store, f), err_msg=f)
+    nav = want.view.nav
+    np.testing.assert_array_equal(got.nav_ids, nav.sample_ids)
+    np.testing.assert_array_equal(got.nav_vecs, nav.vectors)
+    np.testing.assert_array_equal(got.nav_adj, nav.graph.adj)
+    np.testing.assert_array_equal(got.nav_deg, nav.graph.deg)
+    assert got.nav_entry == nav.graph.entry
+    np.testing.assert_array_equal(got.pq_codes, want.view.pq_codes)
+    np.testing.assert_allclose(got.pq_cent, want.view.pq_cb.centroids,
+                               rtol=1e-5, atol=1e-5)
+    assert got.overlap_ratio == pytest.approx(want.overlap_ratio, abs=1e-6)
+    assert got.memory_bytes() == want.memory_bytes()
+
+
+INT_SEGMENT = dict(
+    graph=dict(max_degree=12, build_beam=24, insert_batch=64),
+    layout=dict(block_kb=0.5, shuffle="bnf", bnf_iters=3, bns_iters=1,
+                gain_tau=0.001),
+    pq=dict(num_subspaces=4, num_centroids=32, train_iters=4,
+            train_sample=400),
+    nav=dict(sample_ratio=0.25, max_degree=8, build_beam=16))
+
+
+def int_segment_params(algo="vamana", shuffle="bnf"):
+    """Small JAX ``SegmentParams`` for integer data of width 16 (ε = 4)."""
+    from repro.core import params as JP
+    kw = {k: dict(v) for k, v in INT_SEGMENT.items()}
+    kw["graph"]["algo"] = algo
+    kw["layout"]["shuffle"] = shuffle
+    return JP.SegmentParams(
+        graph=JGP(**kw["graph"]), layout=JP.LayoutParams(**kw["layout"]),
+        pq=JP.PQParams(**kw["pq"]), nav=JNP(**kw["nav"]))
+
+
+@pytest.mark.parametrize("algo,shuffle", [("hnsw", "bnf"),
+                                          ("vamana", "bns"),
+                                          ("vamana", "kmeans")])
+def test_build_segment_variants_equal_jax(algo, shuffle):
+    """``build_segment`` through HNSW's base layer, BNS and the k-means
+    packer on integer data: every stage equal to JAX's."""
+    x = _ints(400, 16, seed=1)
+    jp = int_segment_params(algo, shuffle)
+    want = JS.build_segment(x, jp)
+    got = TS.build_segment(x, _t_params_all(jp), device=CPU)
+    _same_segment(got, want)
+    hist = got.build_info["or_history"]
+    assert got.overlap_ratio == pytest.approx(max(hist))
+    if shuffle == "bns":
+        assert hist[-1] >= max(hist[:-1])           # Lemma 4.2 on BNF's
 
 
 def test_navgraph_equals_jax(xi):
