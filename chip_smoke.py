@@ -9,9 +9,12 @@ It drives the port's paths — the segment build
 repack, the hybrid hot tier with inserts and tombstones, the serving
 plane (the cache-fronted host block search, the coordinator, the request
 batcher and the repack scheduler), the build variants (the k-means
-packer, HNSW, BNS), the DiskANN-style baseline and the delta segment
-with its compaction and serving swaps — on a 1,000,000 x 128 segment
-built from seeded clustered vectors, and checks them:
+packer, HNSW, BNS), the DiskANN-style baseline, the delta segment
+with its compaction and serving swaps, the observability plane (spans,
+metrics, the Chrome trace, a ``CostModel`` fitted to the card) and the
+mesh router over four segments on eight ranks of the card — on a
+1,000,000 x 128 segment built from seeded clustered vectors, and checks
+them:
 
   1. card: name and power limit (``nvidia-smi``);
   2. build kernels: compiles every source of ``kernels/csrc`` (one
@@ -27,7 +30,7 @@ built from seeded clustered vectors, and checks them:
      launches and operations are printed by the build function they ran
      in (the kNN, the connectivity fix's host search, the beam search's
      entry distance, the navigation graph);
-  4. vamana: ``build_vamana`` at 100,000 x 128 with the same knobs: time,
+  4. vamana: ``build_vamana`` at 50,000 x 128 with the same knobs: time,
      average degree, OR(G) after BNF, reachability;
   5. kernels: each CUDA kernel against its plain PyTorch version — the
      round kernels on the inputs of a real first round of a 1,024-query
@@ -93,7 +96,7 @@ built from seeded clustered vectors, and checks them:
      the new pack exact copies of its blocks;
  11. hybrid: ``build_hot_tier`` (10% = 100,000 vectors, NSG of degree
      16), 4 batches through a hybrid server beside the plain one
-     (recall@10, batch ms, ``hot_tier_hits``), then 1,024 inserts and
+     (recall@10, batch ms, ``hot_tier_hits``), then 256 inserts and
      1% of the base ids tombstoned in both tiers, served again: no
      tombstoned id returned; 64 inserted vectors as queries, each that
      the hot route reaches first at distance 0 (the share printed);
@@ -116,7 +119,8 @@ built from seeded clustered vectors, and checks them:
      pack left cold, through a ``RequestBatcher(dim=128, buckets=(256,
      1024))`` into a ``QueryCoordinator`` over the device server, with a
      ``RepackScheduler(SERVE_REPACK)`` fed by a cached host store that
-     serves the same stream: every batch's stats dict (its totals equal
+     serves the first 256 requests of each batch: every batch's stats
+     dict (its totals equal
      to the server's ``batch_stats`` columns), every decision, the batch
      median; a repack must fire at its interval, and the batch before it
      served again after it returns the same ids and dists with more
@@ -141,23 +145,71 @@ built from seeded clustered vectors, and checks them:
      hop); the hot cache changes no result and raises no query's reads;
      64 queries equal their ``device="cpu"`` run in ids, dists and every
      ``IOStats`` field; ``vertex_range_search`` against ``range_search``
-     on 32 queries at phase 9's radius (block reads); the paper's claim
+     on 8 queries at phase 9's radius (block reads); the paper's claim
      that the block search reads fewer blocks printed, not bounded;
  16. delta segment: ``DeltaSegment.wrap`` (a 10% hot tier), 256 inserts,
      1% of the base ids and 16 inserted ones deleted, ``search`` on 256
      queries (recall@10 against the live set's brute force, block reads,
      ``hot_tier_hits``; no deleted id returned), 64 inserted vectors
      queried back, 64 queries against the ``device="cpu"`` run (ids and
-     ``IOStats`` equal, distances within rtol 1e-5); ``compact()`` at
-     full size (stage times; the live count, reachability, no deleted
-     gid); ``swap_into_device_server`` under a ``RepackScheduler`` whose
+     ``IOStats`` equal, distances within rtol 1e-5); then ``compact()``
+     of a second delta over a segment of the first 100,000 vectors (64
+     inserts, 1% of its base and every 16th insert deleted: stage times;
+     the live count, reachability, no deleted gid);
+     ``swap_into_device_server`` under a ``RepackScheduler`` whose
      window held entries past the new block count (dropped), one 1,024
      batch served on the compacted segment (no deleted id, recall@10,
      the round kernels' launches following the rounds);
      ``swap_into_host_server``, whose 64 queries equal ``anns`` on the
      compacted view;
- 17. summary: the launches of every kernel by phase (the build, Vamana,
-     each window of phases 6-16; phase 5's comparisons and the CPU
+ 17. observability: phase 13's serving plane (the coordinator over the
+     device server at ``trace_rounds``, its ``RepackScheduler`` fed by a
+     cached host server) and phase 11's hybrid server, wired to a
+     ``Tracer(WallClock())`` and a ``MetricsRegistry`` through
+     ``QueryCoordinator(tracer=, metrics=)`` and ``attach_obs``: 4
+     batches of 1,024 (each after 64 host-feed queries) and a hybrid
+     batch, then the same on a fresh plane untraced — ids, dists, stats
+     dicts, device columns, host results and ``IOStats``, cache and
+     scheduler counters equal; the event count and ``dropped``; every ``STATS_SCHEMA`` total equal
+     to the registry's ``snapshot()``, the ``io.*`` gauges to
+     ``cache_stats()``; ``calibrate(TPU_HBM_SEGMENT, ...)`` fitted to
+     this card's wall clock on batches of 128 to 4,096 queries (the
+     fitted constants, ``unfit``, the error before and after, each batch
+     measured and modeled, and the fit of ``t_round`` alone; the preset
+     written to a temporary directory, ``results/`` untouched); the
+     round logs as modeled ``device.round`` slices (``timeline_from_
+     round_log`` under the fitted model, ``dma_track``) and
+     ``write_chrome_trace`` to the temporary directory, where
+     ``validate_chrome_trace`` returns ``[]``; the hooks' cost: 8 pairs
+     of one batch on the untraced and one on the traced plane, the order
+     alternating from pair to pair, the two medians and the median of
+     the paired differences with its interquartile range (unresolved
+     where that range holds 0);
+ 18. mesh router: the vectors split in id order into 4 segments of
+     250,000 (the cut of scale: the paper's segments hold 1M), each an
+     NSG build at global offsets 0, 250k, 500k, 750k, served as
+     ``SegmentServer``s behind ``MeshQueryRouter`` on 8 ranks of the card
+     (``launch.mesh.make_debug_mesh(1, 8)``, ``RouterParams(
+     window_batches=8, rebalance_interval=4, min_window=2,
+     skew_threshold=1.2)``): phase 6's batches 1-2 routed, each
+     bit-identical to ``merge_topk`` over the four servers' own
+     ``search`` (recall@10 against phase 6's brute force beside the 1M
+     segment's); then a placement planned for segment-0-heavy traffic
+     (``elastic.plan_placement([5, 1, 1, 1], 8)``) and 6 batches of
+     queries near segment 0: the evaluation at batch 4 must fire, the
+     one at batch 8 plan zero moves, and batch 4 served again give the
+     same ids and dists. The placement alone fires the rebalance: every
+     rank searches the whole batch, so queries near segment 0 do not
+     raise its ranks' loads, while each of its 4 replicas owns a quarter
+     of the rows; the check exercises the replica slices, the windowed
+     loads and the restack, not a rebalance driven by the traffic.
+     Every routed batch ``merge_ranks(per_rank) == total``, and the
+     round kernels' launches equal to the rounds of one search a
+     distinct segment (its replicas share it); one batch through a ``QueryCoordinator`` over the router;
+     the routed median and ``per_rank_modeled_us`` (a ``CostModel``
+     figure, not a time of the card);
+ 19. summary: the launches of every kernel by phase (the build, Vamana,
+     each window of phases 6-18; phase 5's comparisons and the CPU
      comparisons and timings of phases 13, 15 and 16 are not counted)
      and in total; one JSON line of the kernels with the totals, the card
      line, and last ``{"ok": true, "device": {...}}``.
@@ -182,6 +234,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -190,7 +243,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 DIM, BATCH, BATCHES = 128, 1024, 8   # SIFT1M width; 8 batches of 1,024
-VAMANA_N = 100_000                   # the Vamana phase's size on the card
+VAMANA_N = 50_000                    # the Vamana phase's size on the card
 KNN_ROWS = 4096                      # sampled vertices of the kNN check
 KNN_CHUNK = 2048                     # distances.knn_graph's row chunk
 L2_ATOL, L2_RTOL = 1e-2, 1e-5        # f32 order, squared norms ~1e4
@@ -198,7 +251,8 @@ ITERS = 50                           # launches per kernel timing
 SPIN_CYCLES = 2_000_000              # ~1 ms of card clock before each one
 RANGE_BATCHES, HYBRID_BATCHES = 2, 4 # batches of the range and hybrid
 BIG_BATCH = 4096                     # the large batch: R = 8,192 at F = 2
-INSERTS, SELF_QUERIES = 1024, 64     # hybrid inserts; those queried back
+INSERT_POOL = 1024                   # seeded vectors phases 11 and 16 insert
+INSERTS, SELF_QUERIES = 256, 64      # hybrid inserts; those queried back
 CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "gather_union": ("tier0_fetch.cu",
@@ -217,13 +271,21 @@ ADC_HOST = 64          # the host search's ADC call: 1 query x 64 codes
 HOST_QUERIES, HOST_CHECK = 256, 64   # phase 13's host search; on the CPU
 HOST_PROFILE = 32                    # phase 13's profiled host queries
 STREAM = 4096                        # phase 13's single requests
+FEED_QUERIES = 256                   # of each batch, served by the feed
 WIDE_Q, WIDE_F = 128, 16   # tier0_fetch_rank's wide shape: F·ε = 96 slots
 KMEANS_ITERS = 8                     # phase 14: the k-means packer's steps
 HNSW_N = 20_000                      # phase 14: HNSW's size on the card
 BNS_N, BNF_ITERS = 1200, 8           # phase 14: App. F's BNS size and β
-BASE_CHECK, BASE_RANGE = 64, 32      # phase 15: CPU check; range queries
+BASE_CHECK, BASE_RANGE = 64, 8       # phase 15: CPU check; range queries
 DELTA_INSERTS, DELTA_DEAD_INSERTS = 256, 16   # phase 16's delta
 DELTA_SELF, DELTA_CHECK = 64, 64     # phase 16: queried back; CPU check
+COMPACT_N, COMPACT_INSERTS = 100_000, 64   # phase 16: the compaction's delta
+OBS_BATCHES, OBS_FEED = 4, 64        # phase 17: traced batches; host feed
+OBS_PAIRS = 8                        # phase 17: traced/untraced timing pairs
+CALIB_SIZES = (128, 256, 512, 1024, 2048, 4096)   # phase 17's fit
+CALIB_REPEATS = 2                    # batches of each size in the fit
+MESH_SEGMENTS, MESH_RANKS = 4, 8     # phase 18: JAX's mesh_bench layout
+MESH_UNIFORM, MESH_SKEWED = 2, 6     # phase 18: phase 6's batches; skewed
 
 
 class SmokeFailure(Exception):
@@ -425,13 +487,22 @@ def main() -> int:
     from repro_torch.kernels import ops as KO
     from repro_torch.kernels import pq_adc as PQK
     from repro_torch.kernels import tier0_fetch as T0
-    from repro_torch.obs import fold_round_log, round_log_totals
+    from repro_torch.core.params import RouterParams
+    from repro_torch.distributed.elastic import plan_placement
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.obs import (CalibrationPreset, CalibrationSample,
+                                 MetricsRegistry, Tracer, WallClock,
+                                 calibrate, fold_round_log, load_calibrated,
+                                 round_log_totals, timeline_from_round_log,
+                                 validate_chrome_trace, write_chrome_trace)
     from repro_torch.pq.pq import lut_batch, lut_host
     from repro_torch.serving.batcher import RequestBatcher
     from repro_torch.serving.coordinator import (HostSegmentServer,
                                                  QueryCoordinator,
                                                  SegmentServer,
-                                                 attach_shared_fetch_queue)
+                                                 attach_shared_fetch_queue,
+                                                 merge_topk)
+    from repro_torch.serving.router import MeshQueryRouter
     from repro_torch.serving.scheduler import RepackScheduler
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1357,11 +1428,12 @@ def main() -> int:
               f"{np.mean(hot_hits):.3f} per query")
 
         # inserts, then 1% of the base tombstoned in both tiers
-        new_v = query_set(x, INSERTS, seed=3)
+        # (the pool of earlier runs' 1,024; the first INSERTS go in)
+        new_v = query_set(x, INSERT_POOL, seed=3)
         gids = np.arange(args.n, args.n + INSERTS)
         sync(device)
         t0 = time.perf_counter()
-        hot.insert(new_v, gids)
+        hot.insert(new_v[:INSERTS], gids)
         sync(device)
         ins_s = time.perf_counter() - t0
         dead = np.random.default_rng(args.seed + 4).choice(
@@ -1373,7 +1445,8 @@ def main() -> int:
               f" ms each); tombstoned {dead.size} base ids, {in_hot} of them"
               f" hot; hot tier size {hot.size}, live {hot.live_count}")
         hyb = dataclasses.replace(hyb, tombstones=tomb)
-        table = torch.cat([xt, torch.as_tensor(new_v, device=device)])
+        table = torch.cat([xt, torch.as_tensor(new_v[:INSERTS],
+                                               device=device)])
         qb = extra[-1]
         ids_t, d_t, ms_t = serve(qb, hyb)
         check_results(qb, ids_t, d_t, table)
@@ -1593,7 +1666,7 @@ def main() -> int:
             qb_, rids, nv = batcher.next_batch()
             qb_ = qb_[:nv]
             t0 = time.perf_counter()
-            feed.search(qb_)
+            feed.search(qb_[:FEED_QUERIES])
             feed_ms = (time.perf_counter() - t0) * 1e3
             take("13 host feed")
             sync(device)
@@ -1624,7 +1697,8 @@ def main() -> int:
             sched_ms.append(ms)
             results.append((qb_, gi, gd, st))
             print(f"  batch {len(results)} ({nv} requests {rids[0]}.."
-                  f"{rids[-1]}): {ms:.3f} ms (host feed {feed_ms:.3f} ms);"
+                  f"{rids[-1]}): {ms:.3f} ms (host feed of the first "
+                  f"{min(nv, FEED_QUERIES)}: {feed_ms:.3f} ms);"
                   f" stats {json.dumps(st, sort_keys=True)}")
             if "repack" in st and fired is None and \
                     st["repack"]["repacked"]:
@@ -1942,33 +2016,60 @@ def main() -> int:
         K.reset_all_launches()          # the comparison: not counted
         del cpu_dl
 
-        # compaction at full size, then the swaps
+        del dl, x_live_t
+
+        # the compaction at COMPACT_N (of scale only): a delta over a
+        # segment of the first COMPACT_N vectors, with inserts and 1% of
+        # its base plus every 16th insert deleted, folded back to disk;
+        # then the swaps
+        n_c = COMPACT_N if on_card else min(COMPACT_N, args.n // 2)
+        xc = np.ascontiguousarray(x[:n_c])
+        sync(device)
         t0 = time.perf_counter()
-        comp, cgids = dl.compact()
+        seg_c = build_segment(xc, params, device=device)
+        sync(device)
+        print(f"  compaction base: {n_c} vectors built in "
+              f"{time.perf_counter() - t0:.3f} s")
+        dl_c = DeltaSegment.wrap(seg_c, HotTierParams(budget_frac=0.10),
+                                 device=args.device)
+        gids_cc = dl_c.insert(new_v[:COMPACT_INSERTS])
+        dead_c = np.random.default_rng(args.seed + 5).choice(
+            n_c, n_c // 100, replace=False)
+        dead_ci = gids_cc[::16]
+        for g in np.concatenate([dead_c, dead_ci]):
+            check(dl_c.delete(int(g)), "a delete before the compaction "
+                                       "failed")
+        gone_c = set(dead_c.tolist()) | set(dead_ci.tolist())
+        x_live, live_g = dl_c.live_vectors()
+        x_live_t = torch.as_tensor(x_live, device=device)
+        take("16 compaction delta")
+        t0 = time.perf_counter()
+        comp, cgids = dl_c.compact()
         comp_s = time.perf_counter() - t0
         take("16 compaction")
         bt_c = comp.build_times
-        print(f"  compact(): {comp_s:.3f} s "
+        print(f"  compact() of {n_c} + {COMPACT_INSERTS} inserts - "
+              f"{len(gone_c)} deleted: {comp_s:.3f} s "
               f"({ {k: round(v, 3) for k, v in bt_c.items()} }); "
               f"{comp.num_vectors} vectors, {comp.num_blocks} blocks "
-              f"(base {seg.num_blocks}); OR(G) {comp.overlap_ratio:.4f}")
-        check(comp.num_vectors == dl.live_count == cgids.size,
+              f"(base {seg_c.num_blocks}); OR(G) {comp.overlap_ratio:.4f}")
+        check(comp.num_vectors == dl_c.live_count == cgids.size,
               "the compaction lost or added vectors")
-        check(not np.isin(cgids, list(gone)).any(),
+        check(not np.isin(cgids, list(gone_c)).any(),
               "a tombstoned gid survived the compaction")
         check(np.array_equal(cgids, live_g), "gids are not the live set's")
         check_graph(comp.graph, "compacted graph")
         comp.layout.validate()
 
-        srv_d = SegmentServer(segment=ds, offset=0,
-                              num_vectors=seg.num_vectors, params=p,
-                              device=args.device, host=seg)
+        srv_d = SegmentServer(segment=DS.from_segment(seg_c, device=device),
+                              offset=0, num_vectors=n_c, params=p,
+                              device=args.device, host=seg_c)
         sched = RepackScheduler(SERVE_REPACK)
         sched.attach_target(srv_d)
         # observed demand on the old layout's tail, at and past the
         # compacted block count (or past it by 8 when the compaction
         # grew the segment), beside entries that stay valid
-        new_total, old_total = comp.num_blocks, seg.num_blocks
+        new_total, old_total = comp.num_blocks, seg_c.num_blocks
         sched._window.update({b: 5 for b in range(
             new_total - 8, max(old_total, new_total + 8))})
         sched._window.update({0: 3, 1: 2})
@@ -1984,13 +2085,13 @@ def main() -> int:
               and sched._window[1] == 2,
               "the swap left stale window entries or dropped valid ones")
         take("16 swap")
-        qc = query_set(x, BATCH, seed=10)
+        qc = query_set(xc, BATCH, seed=10)
         ids_c, d_c, ms_c = serve(qc, srv_d)
         st_c = srv_d.batch_stats()
         got = take("16 compacted serve")
         check_results(qc, ids_c, d_c, x_live_t)
         gid_c = cgids[ids_c]
-        check(not np.isin(gid_c, list(gone)).any(),
+        check(not np.isin(gid_c, list(gone_c)).any(),
               "the compacted segment served a tombstoned id")
         truth_c = D.brute_force_knn(x_live_t, qc, 10, device=device)
         take("16 oracle")
@@ -2002,7 +2103,7 @@ def main() -> int:
             check(got["gather_union"] == st_c["rounds"] > 0
                   and got["fused_round_rank"] == st_c["rounds"],
                   "compacted-serve launches do not follow the rounds")
-        hs = HostSegmentServer.from_segment(seg, 0, device=args.device)
+        hs = HostSegmentServer.from_segment(seg_c, 0, device=args.device)
         swap_into_host_server(hs, comp, scheduler=sched)
         sub = host_q[:DELTA_CHECK]
         ids_hs, d_hs, _ = hs.search(sub)
@@ -2016,7 +2117,396 @@ def main() -> int:
               "view")
         print(f"  swap_into_host_server: {DELTA_CHECK} queries equal anns "
               f"on the compacted view")
-        del dl, comp, srv_d, hs, x_live_t
+        del dl_c, seg_c, comp, srv_d, hs, x_live_t
+
+    with phase("17 observability"):
+        # phase 13's serving plane with a tracer on the wall clock and a
+        # metrics registry wired through QueryCoordinator(tracer=,
+        # metrics=) and attach_obs (the host feed server and its cached
+        # store, the scheduler), phase 11's hot tier through the hybrid
+        # server; the same batches untraced on a fresh plane
+        obs_b = batches[1:1 + OBS_BATCHES]
+        feed_q = host_q[:OBS_FEED]
+        p_tr = dataclasses.replace(p, trace_rounds=True)
+        res_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "results")
+        results_before = (sorted(os.listdir(res_dir))
+                          if os.path.isdir(res_dir) else [])
+
+        def obs_run(traced):
+            tr = Tracer(WallClock()) if traced else None
+            reg = MetricsRegistry() if traced else None
+            fview = cached_view(seg.view, seg.graph,
+                                SEGMENT_BENCH_CACHED.cache)
+            fsrv = HostSegmentServer(view=fview,
+                                     params=SEGMENT_BENCH_CACHED.search,
+                                     offset=0, num_vectors=seg.num_vectors,
+                                     device=args.device)
+            dsrv = SegmentServer(segment=ds, offset=0,
+                                 num_vectors=seg.num_vectors,
+                                 params=p_tr if traced else p,
+                                 device=args.device, host=seg)
+            sch = RepackScheduler(SERVE_REPACK)
+            sch.attach_feed(fview.store)
+            crd = QueryCoordinator([dsrv], scheduler=sch, tracer=tr,
+                                   metrics=reg)
+            hyb_o = dataclasses.replace(hyb, hot_tier=dataclasses.replace(
+                hot, tracer=None, metrics=None))
+            if traced:
+                fsrv.attach_obs(tr, reg)
+                hyb_o.attach_obs(tr, reg)
+            out, logs = [], []
+            for qb in obs_b:
+                fi, fd, _ = fsrv.search(feed_q)
+                gi, gd, st = crd.search(qb, k=10)
+                bs = dsrv.batch_stats()
+                if traced:
+                    logs.append((dsrv.last_round_log, bs["rounds"]))
+                out.append((gi, gd, st, {k_: np.asarray(v).tolist()
+                                         for k_, v in bs.items()},
+                            fi, fd, [dataclasses.asdict(s_)
+                                     for s_ in fsrv.last_stats]))
+            hi, hd, _ = hyb_o.search(obs_b[0], 10)
+            out.append((hi, hd, {k_: np.asarray(v).tolist() for k_, v
+                                 in hyb_o.batch_stats().items()},
+                        fsrv.cache_stats(), sch.stats()))
+            return out, crd, tr, reg, logs
+
+        plain_out, plain_crd, _, _, _ = obs_run(False)
+        take("17 untraced")
+        trac_out, trac_crd, tr, reg, logs = obs_run(True)
+        traced = take("17 traced")
+        for i, (a, b_) in enumerate(zip(trac_out[:-1], plain_out[:-1])):
+            check(np.array_equal(a[0], b_[0]) and np.array_equal(a[1], b_[1])
+                  and a[2] == b_[2] and a[3] == b_[3]
+                  and np.array_equal(a[4], b_[4])
+                  and np.array_equal(a[5], b_[5]) and a[6] == b_[6],
+                  f"tracing changed batch {i + 1}'s ids, dists, stats "
+                  f"dict, device columns or host feed")
+            check_results(obs_b[i], a[0], a[1])
+        ha, hb_ = trac_out[-1], plain_out[-1]
+        check(np.array_equal(ha[0], hb_[0]) and np.array_equal(ha[1], hb_[1])
+              and ha[2:] == hb_[2:],
+              "tracing changed the hybrid batch, the cache counters or "
+              "the scheduler")
+        rounds_t = sum(r_ for _, r_ in logs)
+        if on_card:
+            want_r = rounds_t + ha[2]["rounds"]
+            check(traced["gather_union"] == want_r > 0
+                  and traced["fused_round_rank"] == want_r,
+                  "traced launches do not follow the rounds")
+        print(f"  {OBS_BATCHES} batches of {BATCH} through the coordinator "
+              f"(+ {OBS_FEED} host feed queries each, 1 hybrid batch), "
+              f"traced and untraced: ids, dists, stats dicts, device "
+              f"columns, host feed results and IOStats, cache and "
+              f"scheduler counters equal")
+        print(f"  {len(tr)} events, dropped {tr.dropped}")
+        names = {}
+        for e in tr.events:
+            names[e.name] = names.get(e.name, 0) + 1
+        print(f"  events by name: {dict(sorted(names.items()))}")
+        for want in ("coord.batch", "coord.segment", "host.search",
+                     "io.read", "hot.route", "sched.eval"):
+            check(names.get(want, 0) > 0, f"no {want} event was traced")
+        check(names["coord.batch"] == OBS_BATCHES
+              and names["host.search"] == OBS_BATCHES,
+              "one coord.batch and one host.search span a batch")
+        snap = reg.snapshot()
+        sts = [o[2] for o in trac_out[:-1]]
+        for key in QueryCoordinator.STATS_SCHEMA:
+            if key.startswith("total_") or key in ("cache_hits",
+                                                   "cache_misses"):
+                check(snap[f"serve.{key}"][""] == sum(s_[key] for s_ in sts),
+                      f"the registry's serve.{key} differs from the stats "
+                      f"dicts' total")
+        check(snap["serve.batches"][""] == OBS_BATCHES
+              and snap["serve.queries"][""] == OBS_BATCHES * BATCH
+              and snap["serve.block_reads"]["seg0"]
+              == sum(s_["total_block_reads"] for s_ in sts),
+              "the registry's batch, query or per-segment counts are off")
+        cs = ha[3]
+        check(all(snap[f"io.{k_}"]["seg0"] == cs[k_] for k_ in (
+            "cache_hits", "tier2_hits", "cache_misses")),
+              "the io.* gauges differ from cache_stats()")
+        print(f"  registry: every STATS_SCHEMA total equals snapshot(); "
+              f"serve.batch_block_reads "
+              f"{json.dumps(snap['serve.batch_block_reads'][''])}; io.* "
+              f"gauges = cache_stats(); hot.route_hits "
+              f"{snap['hot.route_hits']['seg0']}, hot.size "
+              f"{snap['hot.size']['seg0']}")
+
+        # CostModel constants fitted to this card's wall clock: batches
+        # of several sizes, so t_round and t_round_comp can be told apart
+        samples = []
+        for size in CALIB_SIZES:
+            for rep in range(CALIB_REPEATS):
+                qb = big[:size]
+                sync(device)
+                t0 = time.perf_counter()
+                srv.search(qb, 10)
+                sync(device)
+                us = (time.perf_counter() - t0) * 1e6
+                samples.append(CalibrationSample(
+                    fold_batch(srv.batch_stats(), IO), us))
+        take("17 calibration")
+        with tempfile.TemporaryDirectory() as tmp:
+            cal_path = os.path.join(tmp, f"CALIB_{IO.TPU_HBM_SEGMENT.name}"
+                                         f".json")
+            fitted, preset, report = calibrate(
+                IO.TPU_HBM_SEGMENT, samples, preset_path=cal_path,
+                source=f"chip_smoke.py phase 17: {len(samples)} batches "
+                       f"of {list(CALIB_SIZES)} queries on {card}")
+            check(CalibrationPreset.load(cal_path) == preset,
+                  "the stored preset does not load back")
+            check(load_calibrated(IO.TPU_HBM_SEGMENT, results_dir=tmp)
+                  == fitted, "load_calibrated does not give the fit")
+            # the served batches' round logs as modeled device.round
+            # slices under the fitted model, each at its coord.batch
+            starts = [e.ts_us for e in tr.by_name("coord.batch")]
+            for bi, ((log, r_), ts) in enumerate(zip(logs, starts), 1):
+                timeline_from_round_log(fold_round_log(log, r_), fitted,
+                                        tracer=tr, track="device",
+                                        t0_us=ts, batch=bi, dma_track=True)
+            trace_path = os.path.join(tmp, "phase17.json")
+            write_chrome_trace(trace_path, tr, metadata={
+                "card": card, "batches": OBS_BATCHES})
+            with open(trace_path) as f:
+                problems = validate_chrome_trace(json.load(f))
+            size_b = os.path.getsize(trace_path)
+        check(problems == [], f"the Chrome trace is invalid: {problems[:3]}")
+        print(f"  Chrome trace: {len(tr)} events with "
+              f"{len(tr.by_name('device.round'))} modeled device.round "
+              f"slices, {size_b} B, validate_chrome_trace -> []")
+        fit_s = {k_: round(v, 6) for k_, v in report["fitted"].items()}
+        print(f"  CostModel fitted to this card's wall clock ({card}; "
+              f"{len(samples)} batches of {list(CALIB_SIZES)} queries, "
+              f"{CALIB_REPEATS} each): fitted {fit_s}, unfit "
+              f"{report['unfit']}, base {report['base']}")
+        print(f"  error before (TPU-HBM constants): "
+              f"{json.dumps(report['error_before'])}; after: "
+              f"{json.dumps(report['error_after'])}")
+        check(report["n_samples"] == len(samples)
+              and all(math.isfinite(v) and v >= 0.0
+                      for v in report["fitted"].values()),
+              "the fit gave a negative or non-finite constant")
+        # the round chain alone: on a launch-bound card a batch's time
+        # follows its rounds, whatever its size
+        per_round, _, rep_r = calibrate(IO.TPU_HBM_SEGMENT, samples,
+                                        fields=("t_round",))
+        print(f"  t_round alone: fitted {rep_r['fitted']}, error after "
+              f"{json.dumps(rep_r['error_after'])}")
+        print("  per batch (queries, rounds, live query-rounds, cold reads:"
+              " measured ms / TPU-HBM model ms / fitted model ms / t_round"
+              " alone ms):")
+        for s_, size in zip(samples, [z for z in CALIB_SIZES
+                                      for _ in range(CALIB_REPEATS)]):
+            print(f"    {size}, {s_.stats.batch_rounds}, "
+                  f"{s_.stats.hops}, {s_.stats.cache_misses}: "
+                  f"{s_.measured_us / 1e3:.3f} / "
+                  f"{IO.TPU_HBM_SEGMENT.latency_us(s_.stats) / 1e3:.3f} / "
+                  f"{fitted.latency_us(s_.stats) / 1e3:.3f} / "
+                  f"{per_round.latency_us(s_.stats) / 1e3:.3f}")
+        results_after = (sorted(os.listdir(res_dir))
+                         if os.path.isdir(res_dir) else [])
+        check(results_after == results_before,
+              "a preset was written under results/")
+
+        # what the hooks cost: pairs of one batch on each plane, the
+        # order alternating so that neither plane always runs first
+        def timed(crd, qb):
+            sync(device)
+            t0 = time.perf_counter()
+            crd.search(qb, k=10)
+            sync(device)
+            return (time.perf_counter() - t0) * 1e3
+
+        plain_ms, trac_ms = [], []
+        for i in range(OBS_PAIRS):
+            qb = batches[i % len(batches)]
+            if i % 2:
+                trac_ms.append(timed(trac_crd, qb))
+                plain_ms.append(timed(plain_crd, qb))
+            else:
+                plain_ms.append(timed(plain_crd, qb))
+                trac_ms.append(timed(trac_crd, qb))
+        take("17 overhead")
+        diff = np.asarray(trac_ms) - np.asarray(plain_ms)
+        q25, q50, q75 = np.percentile(diff, [25, 50, 75])
+        verdict = ("unresolved: the interquartile range holds 0"
+                   if q25 <= 0.0 <= q75 else "resolved")
+        print(f"  the hooks' cost ({card}; {OBS_PAIRS} pairs of a "
+              f"{BATCH}-query coordinator batch, order alternating): "
+              f"median ms traced (spans, metrics, trace_rounds) "
+              f"{np.median(trac_ms):.3f}, untraced "
+              f"{np.median(plain_ms):.3f}; paired traced - untraced "
+              f"median {q50:.3f} ms ({q50 / np.median(plain_ms):.4f} of "
+              f"the untraced median), interquartile range [{q25:.3f}, "
+              f"{q75:.3f}] ms: {verdict}")
+        del plain_out, trac_out, plain_crd, trac_crd, tr, reg, logs
+
+    with phase("18 mesh router"):
+        # 4 segments of n/4 in id order (the way a vector database seals
+        # segments), each an NSG build, on 8 ranks of the one card
+        n_s = args.n // MESH_SEGMENTS
+        check(n_s * MESH_SEGMENTS == args.n, "n must split into 4 segments")
+        msrv = []
+        for s in range(MESH_SEGMENTS):
+            xs_ = np.ascontiguousarray(x[s * n_s:(s + 1) * n_s])
+            sync(device)
+            t0 = time.perf_counter()
+            seg_s = build_segment(xs_, params, device=device)
+            sync(device)
+            seg_s.layout.validate()
+            print(f"  segment {s}: ids {s * n_s}..{(s + 1) * n_s - 1}, "
+                  f"built in {time.perf_counter() - t0:.3f} s, OR(G) "
+                  f"{seg_s.overlap_ratio:.4f}, rho {seg_s.num_blocks}")
+            msrv.append(SegmentServer(
+                segment=DS.from_segment(seg_s, device=device),
+                offset=s * n_s, num_vectors=n_s, params=p,
+                device=args.device, host=seg_s))
+            del xs_
+        take("18 segment builds")
+        router = MeshQueryRouter(
+            msrv, mesh=make_debug_mesh(1, MESH_RANKS),
+            params=RouterParams(window_batches=8, rebalance_interval=4,
+                                min_window=2, skew_threshold=1.2))
+        print(f"  router: {router.world} ranks, placement "
+              f"{router.placement}")
+
+        def single_target(qb):
+            ids_, dd_, offs_ = [], [], []
+            for s_ in msrv:
+                i_, d_, _ = s_.search(qb, 10)
+                ids_.append(i_)
+                dd_.append(d_)
+                offs_.append(s_.offset)
+            return merge_topk(ids_, dd_, offs_, 10)
+
+        route_ms, routed = [], {}
+
+        def route(b, qb):
+            sync(device)
+            t0 = time.perf_counter()
+            ri, rd, st = router.route(qb, k=10)
+            sync(device)
+            route_ms.append((time.perf_counter() - t0) * 1e3)
+            got_ = take("18 routed")
+            check(IO.IOStats.merge_ranks(st["per_rank"]) == st["total"],
+                  f"routed batch {b}: merge_ranks(per_rank) != total")
+            # one search a distinct segment, shared by its replicas
+            first = {}
+            for r_, si_ in enumerate(st["placement"]):
+                first.setdefault(si_, r_)
+            rounds_ = sum(st["per_rank"][r_].batch_rounds
+                          for r_ in first.values())
+            if on_card:
+                check(got_["gather_union"] == rounds_ > 0
+                      and got_["fused_round_rank"] == rounds_,
+                      f"routed batch {b}: launches do not follow the "
+                      f"segments' rounds")
+            check_results(qb, ri, rd)
+            rb = st.get("rebalance")
+            print(f"  routed batch {b}: {route_ms[-1]:.3f} ms, placement "
+                  f"{st['placement']}, rank rounds "
+                  f"{[s_.batch_rounds for s_ in st['per_rank'].values()]}"
+                  f" (one search a segment: {rounds_} rounds; "
+                  f"gather_union launches "
+                  f"{got_['gather_union']}), block_reads "
+                  f"{st['total_block_reads']}, rank loads "
+                  f"{[round(s_.rounds_active_weight, 3) for s_ in st['per_rank'].values()]}"
+                  + (f"; evaluation: fired {rb['fired']}, moves "
+                     f"{rb['moves']}, skew {rb['skew']:.4f}, the window's "
+                     f"segment loads "
+                     f"{[round(float(v), 3) for v in router.last_plan.seg_loads]}"
+                     if rb else ""))
+            routed[b] = (ri, rd, st)
+            return ri, rd, st
+
+        # phase 6's batches, uniform over the id space
+        for b in range(1, MESH_UNIFORM + 1):
+            route(b, batches[b])
+        for b in (1, 2):
+            gi_, gd_ = single_target(batches[b])
+            check(np.array_equal(routed[b][0], gi_)
+                  and np.array_equal(routed[b][1], gd_),
+                  f"routed batch {b} differs from merge_topk over the "
+                  f"four servers' own search")
+        take("18 single-target reference")
+        rec_r = recall(np.concatenate([routed[b][0] for b in range(
+            1, MESH_UNIFORM + 1)]), np.concatenate(truth[:MESH_UNIFORM]))
+        rec_1 = recall(np.concatenate([served[b - 1][0] for b in range(
+            1, MESH_UNIFORM + 1)]), np.concatenate(truth[:MESH_UNIFORM]))
+        print(f"  routed batches 1-2 bit-identical to merge_topk over the "
+              f"4 servers' own search; recall@10 over batches 1-"
+              f"{MESH_UNIFORM} against phase 6's brute force: routed "
+              f"(4 x {n_s}) {rec_r:.4f}, the single {args.n} segment "
+              f"{rec_1:.4f}")
+        st1 = routed[1][2]
+        print(f"  per_rank_modeled_us of batch 1 (a CostModel figure, "
+              f"{router.cost_model.name} constants: a model, not a time "
+              f"of the card): "
+              f"{ {r: round(v, 3) for r, v in st1['per_rank_modeled_us'].items()} }"
+              f"; modeled_step_us {st1['modeled_step_us']:.3f}")
+
+        # a placement planned for segment-0-heavy traffic, then a stream
+        # of queries near segment 0: the evaluation must fire, the next
+        # must plan zero moves. The placement alone fires it: every rank
+        # searches the whole batch, so the stream's skew leaves the rank
+        # loads as they are, while segment 0's 4 replicas each own a
+        # quarter of the rows
+        skew_b = [query_set(x[:n_s], BATCH, seed=11 + j)
+                  for j in range(MESH_SKEWED)]
+        router._placement = plan_placement([5.0, 1.0, 1.0, 1.0],
+                                           MESH_RANKS)
+        router._restack()
+        print(f"  placement planned for segment-0-heavy traffic: "
+              f"{router.placement} (it, not the queries' skew, fires the "
+              f"rebalance: every rank searches the whole batch)")
+        evals = []
+        for j in range(MESH_SKEWED):
+            b = MESH_UNIFORM + 1 + j
+            _, _, st = route(b, skew_b[j])
+            if "rebalance" in st:
+                evals.append((b, st["rebalance"]))
+        check(len(evals) == 2 and evals[0][1]["fired"]
+              and evals[0][1]["moves"] > 0,
+              f"no rebalance fired on the skewed placement: {evals}")
+        check(not evals[1][1]["fired"] and evals[1][1]["moves"] == 0,
+              f"the evaluation after the rebalance planned moves: {evals}")
+        b_pre = evals[0][0]
+        pre_i, pre_d, _ = routed[b_pre]
+        ri, rd, _ = route(b_pre, skew_b[b_pre - MESH_UNIFORM - 1])
+        gi_, gd_ = single_target(skew_b[b_pre - MESH_UNIFORM - 1])
+        take("18 single-target reference")
+        check(np.array_equal(ri, pre_i) and np.array_equal(rd, pre_d),
+              "the pre-rebalance batch served again differs")
+        check(np.array_equal(ri, gi_) and np.array_equal(rd, gd_),
+              "the pre-rebalance batch differs from merge_topk after the "
+              "rebalance")
+        print(f"  rebalance fired at batch {b_pre} (skew "
+              f"{evals[0][1]['skew']:.4f}, {evals[0][1]['moves']} moves -> "
+              f"{evals[0][1]['placement']}); batch {evals[1][0]} planned 0 "
+              f"moves (skew {evals[1][1]['skew']:.4f}); batch {b_pre} "
+              f"served again after it: ids and dists equal, and equal to "
+              f"merge_topk over the servers' own search")
+        coord_r = QueryCoordinator([router])
+        qb = skew_b[0]
+        sync(device)
+        ci, cd, cst = coord_r.search(qb, k=10)
+        take("18 routed")
+        check(np.array_equal(ci, routed[MESH_UNIFORM + 1][0])
+              and np.array_equal(cd, routed[MESH_UNIFORM + 1][1])
+              and cst["total_block_reads"] == router.last_stats.cache_misses
+              and cst["segments_searched"] == 1,
+              "the router behind a QueryCoordinator differs from route()")
+        print(f"  behind a QueryCoordinator: the batch of routed batch "
+              f"{MESH_UNIFORM + 1} again, ids and dists equal (across the "
+              f"rebalance), total_block_reads {cst['total_block_reads']}")
+        print(f"  routed batch ms median {np.median(route_ms):.3f} over "
+              f"{len(route_ms)} batches of {BATCH} ({router.world} ranks, "
+              f"one device_anns a segment shared by its replicas); "
+              f"rebalances {router.rebalances}")
+        del router, msrv, coord_r, routed
 
     total = {name: sum(c[name] for c in by_phase.values())
              for name in KERNELS}

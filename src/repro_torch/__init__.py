@@ -1,7 +1,7 @@
 """PyTorch + CUDA port of the Starling segment search (the JAX package
 ``repro`` is the reference it is tested against).
 
-Three paths are ported, each down to hand-written CUDA kernels for
+Four paths are ported, each down to hand-written CUDA kernels for
 Hopper (each with a plain PyTorch version that runs for CPU tensors):
   * the segment build: ``core.segment.build_segment`` -> ``core.graph``
     (Vamana, NSG), ``core.layout`` (BNP, BNF, GP3), ``core.navgraph``,
@@ -18,7 +18,15 @@ Hopper (each with a plain PyTorch version that runs for CPU tensors):
     server's block search (``core.search``) reads through the block
     cache (``io.cached_store``, ``io.cache``, ``io.prefetch``,
     ``io.async_fetch``) and ranks its candidates by PQ-ADC through the
-    ``pq_adc`` kernel.
+    ``pq_adc`` kernel; the observability plane (``obs``: spans on an
+    injected clock, the metrics registry, the Chrome-trace export and
+    the ``CostModel`` fit) reports through every layer of it;
+  * the mesh router on one card: ``serving.router.MeshQueryRouter``
+    fans a batch over W ranks (``launch.mesh.make_debug_mesh``), each
+    taking its segment's ``device_anns`` (one a distinct segment, shared
+    by its replicas) on the round kernels, merges the
+    ranks' top-k (``core.device_search.merge_shard_topk``) and moves
+    replicas between ranks (``distributed.elastic``).
 
 Entry points take ``device=`` and default to ``"cuda"``; nothing falls
 back to the CPU when there is no card.

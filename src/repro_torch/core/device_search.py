@@ -732,3 +732,66 @@ def device_range_search(ds: DeviceSegment, queries: torch.Tensor,
         dists = torch.nn.functional.pad(dists, (0, pad), value=_INF)
     return DeviceRangeResult(ids, dists, dists <= radius, io, t0, saved,
                              saved_x, spec_h, spec_w, total_rounds)
+
+
+# ------------------------------------------------------ mesh merge, stack
+
+def merge_shard_topk(gids: torch.Tensor, gd: torch.Tensor,
+                     k: int) -> tuple:
+    """Merge stacked per-shard results: ``gids``/``gd`` [S, Q, kk]
+    (global ids, -1 = invalid; dists, inf on invalid) -> ([Q, k],
+    [Q, k]) global top-k.
+
+    Ordering is (dist, global id) with invalid ids keyed past every
+    real id, the same total order ``serving.coordinator.merge_topk``
+    sorts by, so a merged fan-out and a host-merged concat over the same
+    shards are bit-identical whatever the shard order or placement. A
+    stable sort by id, then a stable sort by distance, is JAX's
+    ``jnp.lexsort((key_id, flat_d))``."""
+    s, q, kk = gids.shape
+    flat_i = gids.movedim(0, 1).reshape(q, s * kk)
+    flat_d = gd.movedim(0, 1).reshape(q, s * kk)
+    valid = flat_i >= 0
+    flat_d = torch.where(valid, flat_d, torch.full_like(flat_d, _INF))
+    key_id = torch.where(valid, flat_i, torch.full_like(
+        flat_i, torch.iinfo(flat_i.dtype).max))
+    by_id = torch.sort(key_id, dim=1, stable=True).indices
+    by_d = torch.sort(torch.gather(flat_d, 1, by_id), dim=1,
+                      stable=True).indices
+    order = torch.gather(by_id, 1, by_d)[:, :k]
+    return (torch.gather(flat_i, 1, order),
+            torch.gather(flat_d, 1, order))
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def check_stackable(segments) -> None:
+    """Raise ``ValueError`` unless every shard agrees with shard 0 on
+    every array's shape and dtype (``stack_segments``' check)."""
+    if not segments:
+        raise ValueError("stack_segments needs at least one shard")
+    first = segments[0]
+    for idx, seg in enumerate(segments[1:], 1):
+        for f in dataclasses.fields(DeviceSegment):
+            a, b = getattr(first, f.name), getattr(seg, f.name)
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise ValueError(
+                    f"segment shard {idx} field {f.name!r} is "
+                    f"{tuple(b.shape)}/{_dtype_name(b.dtype)}, shard 0 "
+                    f"has {tuple(a.shape)}/{_dtype_name(a.dtype)} — mesh "
+                    "shards must be shape-identical (pad segments to a "
+                    "common size)")
+
+
+def stack_segments(segments) -> DeviceSegment:
+    """Stack same-shape segment shards along a new leading axis: the
+    [W, ...] tree of one shard per rank (replicas are repeated entries).
+    All shards must agree on every array's shape and dtype. The one-card
+    router keeps references to its members' segments instead of a
+    stacked copy (replicas share memory); this is the stacked form."""
+    check_stackable(segments)
+    return DeviceSegment(**{
+        f.name: torch.stack([getattr(s, f.name) for s in segments])
+        for f in dataclasses.fields(DeviceSegment)})

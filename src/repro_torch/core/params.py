@@ -206,6 +206,39 @@ class RepackParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class RouterParams:
+    """Knobs of the mesh serving router (``serving.router.
+    MeshQueryRouter``).
+
+    The router keeps a sliding window of per-rank load folds (the
+    ``rounds_active_weight`` occupancy of each rank's served step) and
+    every ``rebalance_interval`` routed batches compares the windowed
+    per-segment loads against the current placement. A rebalance fires
+    only when the window holds at least ``min_window`` steps AND the
+    rank-load skew (max/mean) reaches ``skew_threshold`` AND the
+    re-planned placement actually moves a segment, so a settled,
+    balanced stream never restacks."""
+    window_batches: int = 16      # per-rank load folds kept in the
+    #                               sliding window (older steps age out)
+    rebalance_interval: int = 8   # evaluate placement every N batches
+    min_window: int = 4           # steps the window must hold before a
+    #                               rebalance may fire (cold-start guard)
+    skew_threshold: float = 1.5   # min max/mean windowed rank load for
+    #                               a rebalance to fire (1.0 = any skew)
+
+    def __post_init__(self):
+        if self.window_batches < 1 or self.rebalance_interval < 1 \
+                or self.min_window < 1:
+            raise ValueError("window_batches, rebalance_interval and "
+                             "min_window must be >= 1")
+        if self.min_window > self.window_batches:
+            raise ValueError("min_window cannot exceed window_batches")
+        if self.skew_threshold < 1.0:
+            raise ValueError("skew_threshold must be >= 1.0 "
+                             "(max/mean load is never below 1)")
+
+
+@dataclasses.dataclass(frozen=True)
 class SegmentBudget:
     """Per-segment space budget (§2.2: <= 2 GB memory, <= 10 GB disk,
     plus the cap on the device tier-0 pack)."""

@@ -86,6 +86,10 @@ class AsyncFetchQueue:
         self.delivered = 0
         self.reorders = 0
         self.inflight_peak = 0
+        # optional obs.trace.Tracer: io.fetch_submit / io.fetch_complete
+        # instants, None-guarded (the event clock stays in ticks; trace
+        # timestamps come from the tracer's own clock)
+        self.tracer = None
 
     def __len__(self) -> int:
         return len(self._inflight)
@@ -122,6 +126,9 @@ class AsyncFetchQueue:
         self.submitted += 1
         occ = len(self._inflight)
         self.inflight_peak = max(self.inflight_peak, occ)
+        if self.tracer is not None:
+            self.tracer.event("io.fetch_submit", cat="io", track="queue",
+                              block=int(b), kind=kind, occupancy=occ)
         return t, occ
 
     def _pop_completions(self, upto: float) -> List[FetchTicket]:
@@ -136,6 +143,10 @@ class AsyncFetchQueue:
             if any(o.seq < t.seq for o in self._inflight.values()):
                 t.reordered = True
                 self.reorders += 1
+            if self.tracer is not None:
+                self.tracer.event("io.fetch_complete", cat="io",
+                                  track="queue", block=int(t.block),
+                                  kind=t.kind, reordered=t.reordered)
             out.append(t)
         return out
 

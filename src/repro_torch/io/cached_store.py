@@ -22,10 +22,10 @@ batching:
   * per-query counters go to the ``IOStats`` passed to ``read_demand``
     (or ``stats_sink`` for ``read_block`` callers); lifetime totals to
     ``.total``, and the per-block demand count to ``block_freq`` (the
-    repack scheduler's feed).
-
-The tracer and metrics hooks of the JAX class (``attach_obs``,
-``publish_metrics``) are not ported yet.
+    repack scheduler's feed);
+  * observability (``attach_obs``): an ``io.read`` span per demand read
+    and the queue's fetch events on a tracer, the lifetime counters
+    republished as ``io.*`` gauges by ``publish_metrics``.
 """
 from __future__ import annotations
 
@@ -62,6 +62,48 @@ class CachedBlockStore:
         # test hook for the never-fetch-twice invariant.
         self.fetch_log: Optional[List[Tuple[str, int]]] = \
             [] if record_fetches else None
+        # observability (obs): both optional and None-guarded on the hot
+        # path; set here (not lazily) because __getattr__ forwards
+        # unknown attributes to the base store. ``obs_target`` is the
+        # per-target attribution label metrics publish under.
+        self.tracer = None              # obs.trace.Tracer
+        self.metrics = None             # obs.metrics.MetricsRegistry
+        self.obs_target: str = ""
+
+    def attach_obs(self, tracer=None, metrics=None,
+                   target: str = "") -> None:
+        """Wire the store into the observability plane: ``io.read``
+        spans on ``tracer`` (and fetch submit/complete events on the
+        attached queue), lifetime counters published to ``metrics``
+        under ``target``."""
+        self.tracer = tracer
+        self.metrics = metrics
+        self.obs_target = target
+        if self.queue is not None and tracer is not None and \
+                getattr(self.queue, "tracer", None) is None:
+            self.queue.tracer = tracer
+
+    def publish_metrics(self) -> None:
+        """Re-express the lifetime cache counters through the metrics
+        registry (gauges under ``io.*``, attributed to ``obs_target``):
+        the registry view and ``total`` cannot disagree because this is
+        ``total``, republished."""
+        if self.metrics is None:
+            return
+        t = self.total
+        for name, val in (
+                ("io.block_reads", t.block_reads),
+                ("io.cache_hits", t.cache_hits),
+                ("io.tier2_hits", t.tier2_hits),
+                ("io.cache_misses", t.cache_misses),
+                ("io.round_trips", t.io_round_trips),
+                ("io.prefetched_blocks", t.prefetched_blocks),
+                ("io.queue_fetches", t.queue_fetches),
+                ("io.inflight_peak", t.inflight_peak),
+                ("io.inflight_joins", t.inflight_joins),
+                ("io.completion_reorders", t.completion_reorders),
+                ("io.hit_rate", t.cache_hit_rate)):
+            self.metrics.gauge(name, self.obs_target).set(val)
 
     # ------------------------------------------------------- delegation
     def __getattr__(self, name):
@@ -90,6 +132,15 @@ class CachedBlockStore:
         submit/wait path when an ``AsyncFetchQueue`` is attached,
         otherwise coalesces the speculation into the demand round trip.
         """
+        if self.tracer is not None:
+            # residency peeked via ``in`` (side-effect-free: a
+            # lookup_tier here would touch LRU recency and tier-2
+            # promotion twice, and tracing would change the counters)
+            with self.tracer.span("io.read", cat="io",
+                                  track=self.obs_target or "io",
+                                  block=int(b),
+                                  cached=bool(b in self.cache)):
+                return self._read_demand(b, stats, prefetch)
         return self._read_demand(b, stats, prefetch)
 
     def _read_demand(self, b: int, stats: Optional[IOStats],
@@ -192,6 +243,9 @@ class CachedBlockStore:
         if self.queue is not None and self.queue is not queue:
             self._deliver(self.queue.drain(), None)
         self.queue = queue
+        if queue is not None and self.tracer is not None and \
+                getattr(queue, "tracer", None) is None:
+            queue.tracer = self.tracer
 
     # ------------------------------------------------------- accounting
     def _log(self, kind: str, b: int) -> None:

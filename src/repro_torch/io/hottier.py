@@ -21,8 +21,9 @@ vectors and adjacency are mirrored on ``device``, where every beam
 search (``route``'s batch, each insert's neighbourhood search) runs as
 the batched ``core.graph.greedy_search_batch``. An insert writes the
 rows it changed to the mirror; a growth of the arrays re-uploads it.
-The observability hooks of the JAX class (``attach_obs``, its spans and
-counters) are not ported yet.
+``attach_obs`` wires it into the observability plane: a ``hot.route``
+span per routed batch, the routed queries and visits as counters, the
+size and memory as gauges.
 """
 from __future__ import annotations
 
@@ -98,6 +99,8 @@ class HotTier:
     metric: str = "l2"
     entry: int = 0                 # local entry vertex
     device: str = "cuda"
+    tracer: Optional[object] = None
+    metrics: Optional[object] = None
     _local_of: Dict[int, int] = dataclasses.field(default_factory=dict)
     _mirror: Optional[tuple] = dataclasses.field(default=None, repr=False)
 
@@ -112,6 +115,18 @@ class HotTier:
     @property
     def live_count(self) -> int:
         return int(self.size - self.dead[: self.size].sum())
+
+    def attach_obs(self, tracer=None, metrics=None,
+                   target: str = "hot") -> None:
+        """Wire the observability plane: ``route()`` records a
+        ``hot.route`` span and hit counters against ``target``."""
+        self.tracer = tracer
+        if metrics is not None:
+            self.metrics = metrics
+            metrics.gauge("hot.size", target).set(float(self.size))
+            metrics.gauge("hot.memory_bytes", target).set(
+                float(self.memory_bytes()))
+        self._obs_target = target
 
     def _on_device(self):
         """(vectors [cap, D], adj [cap, Λ]) on ``device``, uploaded when
@@ -131,6 +146,21 @@ class HotTier:
         cold graph knows; tombstoned vertices still navigate, appended
         ones do not exist on disk) and each query's visit count."""
         queries = np.ascontiguousarray(queries, np.float32)
+        if self.tracer is not None:
+            with self.tracer.span("hot.route", cat="serve", track="hot",
+                                  queries=queries.shape[0]):
+                out = self._route(queries, k)
+        else:
+            out = self._route(queries, k)
+        if self.metrics is not None:
+            tgt = getattr(self, "_obs_target", "hot")
+            self.metrics.counter("hot.routed_queries", tgt).inc(
+                queries.shape[0])
+            self.metrics.counter("hot.route_hits", tgt).inc(
+                float(out.hot_hits.sum()))
+        return out
+
+    def _route(self, queries: np.ndarray, k: int) -> HotRoute:
         p = self.params
         beam = max(p.search_beam, k, p.exit_width)
         x, adj = self._on_device()
@@ -210,6 +240,9 @@ class HotTier:
                 self.adj[rows], device=adj.device)
             self.size += 1
             self._local_of[int(gid)] = li
+        if self.metrics is not None:
+            tgt = getattr(self, "_obs_target", "hot")
+            self.metrics.gauge("hot.size", tgt).set(float(self.size))
 
     def delete(self, gid: int) -> bool:
         """Tombstone a global id if it is hot-resident; returns whether

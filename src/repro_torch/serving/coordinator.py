@@ -13,11 +13,15 @@ coordinator``, Fig. 1(b)).
   * ``QueryCoordinator`` — scatters a batch over ``SegmentTarget``s,
     merges the per-segment top-k by (dist, global id), reports the
     batch's counters (``STATS_SCHEMA``) and drives a
-    ``serving.scheduler.RepackScheduler``.
+    ``serving.scheduler.RepackScheduler``; the mesh router
+    (``serving.router.MeshQueryRouter``) drops in as one target.
 
-The JAX coordinator's tracer and metrics hooks (``tracer=``/
-``metrics=``, ``attach_obs``, the ``coord.*`` and ``host.search`` spans,
-``_publish_metrics``) are not ported yet.
+With a tracer and a metrics registry (``QueryCoordinator(tracer=,
+metrics=)``, wired into every target through ``attach_obs``), a batch
+records ``coord.batch`` and ``coord.segment`` spans, a host server its
+``host.search`` span, and the stats dict is republished as ``serve.*``
+metrics (``obs``). A span measures host time: ``search`` returns numpy,
+so a span closes after the result reached the host.
 """
 from __future__ import annotations
 
@@ -175,6 +179,12 @@ class SegmentServer:
                                   and self.params.fetch_impl == "fused"),
                 "dma_speculative": self.params.speculate}
 
+    def attach_obs(self, tracer, metrics) -> None:
+        if self.hot_tier is not None and \
+                (tracer is not None or metrics is not None):
+            self.hot_tier.attach_obs(tracer, metrics,
+                                     target=f"seg{self.offset}")
+
 
 @dataclasses.dataclass
 class HostSegmentServer:
@@ -189,6 +199,7 @@ class HostSegmentServer:
     num_vectors: int
     k_default: int = 10
     device: str = "cuda"
+    tracer: Optional[object] = None  # obs.trace.Tracer (optional)
 
     @classmethod
     def from_segment(cls, seg, offset: int,
@@ -200,6 +211,18 @@ class HostSegmentServer:
                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """queries [Q, D] -> (ids [Q, k], dists [Q, k], block_reads [Q]);
         the per-query ``IOStats`` are kept in ``last_stats``."""
+        if self.tracer is not None:
+            with self.tracer.span("host.search", cat="serve",
+                                  track=f"seg{self.offset}",
+                                  n_queries=int(queries.shape[0]),
+                                  k=int(k or self.k_default)) as sp:
+                ids, dists, io = self._search(queries, k)
+                sp["block_reads"] = int(io.sum())
+            return ids, dists, io
+        return self._search(queries, k)
+
+    def _search(self, queries: np.ndarray, k: Optional[int]
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         ids, dists, stats = anns(self.view, queries, k or self.k_default,
                                  self.params, device=self.device)
         self.last_stats = stats
@@ -208,10 +231,14 @@ class HostSegmentServer:
 
     def cache_stats(self) -> Dict[str, float]:
         """Lifetime cache counters of the shared store (empty if
-        uncached)."""
+        uncached). When the store carries a metrics registry
+        (``CachedBlockStore.attach_obs``), the same counters are
+        republished through it first, so this dict is a view of what
+        the registry reports."""
         store = self.view.store
         if not isinstance(store, CachedBlockStore):
             return {}
+        store.publish_metrics()
         t = store.total
         return {"cache_hits": t.cache_hits,
                 "tier2_hits": t.tier2_hits,
@@ -231,6 +258,14 @@ class HostSegmentServer:
     def demand_feed(self):
         store = self.view.store
         return store if isinstance(store, CachedBlockStore) else None
+
+    def attach_obs(self, tracer, metrics) -> None:
+        if tracer is not None and self.tracer is None:
+            self.tracer = tracer
+        store = self.view.store
+        if isinstance(store, CachedBlockStore) and \
+                (tracer is not None or metrics is not None):
+            store.attach_obs(tracer, metrics, target=f"seg{self.offset}")
 
 
 def attach_shared_fetch_queue(servers: Sequence["HostSegmentServer"],
@@ -268,16 +303,22 @@ class QueryCoordinator:
     as demand feeds, and after every served batch the coordinator notes
     the device columns and lets the scheduler evaluate; a repack lands
     after the batch has returned. The coordinator speaks only the
-    ``SegmentTarget`` protocol (``serving.target``). It takes no tracer
-    or metrics registry: the JAX coordinator's observability hooks are
-    not ported yet."""
+    ``SegmentTarget`` protocol (``serving.target``): host servers, device
+    servers and the ``MeshQueryRouter`` are interchangeable entries of
+    ``servers``. ``tracer`` / ``metrics`` (``obs``) wire the coordinator,
+    its targets and the scheduler into one observability plane."""
 
     def __init__(self, servers: List[tgt.SegmentTarget],
                  prune_fn: Optional[Callable] = None,
-                 scheduler=None):
+                 scheduler=None, tracer=None, metrics=None):
         self.servers = servers
         self.prune_fn = prune_fn          # (queries) -> segment indices
         self.scheduler = scheduler
+        self.tracer = tracer              # obs: coord.batch /
+        #                                   coord.segment spans
+        self.metrics = metrics            # obs.MetricsRegistry the stats
+        #                                   dict is republished through
+        #                                   (same keys, same values)
         self._cache_seen: Dict[int, Tuple[int, int]] = {}  # per-server
         #   (hits, misses) lifetime watermark for per-call delta reporting
         for s in servers:
@@ -287,6 +328,13 @@ class QueryCoordinator:
                 feed = tgt.demand_feed(s)
                 if feed is not None:
                     scheduler.attach_feed(feed)
+            # wire the target (its store, fetch queue, hot tier, ranks)
+            # into the observability plane the coordinator reports to
+            if tracer is not None or metrics is not None:
+                tgt.attach_obs(s, tracer, metrics)
+        if scheduler is not None and tracer is not None and \
+                getattr(scheduler, "tracer", None) is None:
+            scheduler.tracer = tracer
 
     # every search() stats dict carries all of these keys, zeros
     # included; "repack" appears on batches where the scheduler
@@ -300,6 +348,19 @@ class QueryCoordinator:
 
     def search(self, queries: np.ndarray, k: int = 10
                ) -> Tuple[np.ndarray, np.ndarray, Dict]:
+        if self.tracer is not None:
+            with self.tracer.span("coord.batch", cat="serve",
+                                  track="coord",
+                                  n_queries=int(queries.shape[0]),
+                                  k=int(k)) as sp:
+                gi, gd, stats = self._search(queries, k)
+                sp["block_reads"] = stats["total_block_reads"]
+                sp["segments"] = stats["segments_searched"]
+            return gi, gd, stats
+        return self._search(queries, k)
+
+    def _search(self, queries: np.ndarray, k: int
+                ) -> Tuple[np.ndarray, np.ndarray, Dict]:
         targets = (self.prune_fn(queries) if self.prune_fn
                    else list(range(len(self.servers))))
         ids, dists, offs = [], [], []
@@ -307,11 +368,19 @@ class QueryCoordinator:
         total_spec_h, total_spec_w, total_hot = 0, 0, 0
         for si in targets:
             s = self.servers[si]
-            i, d, io = s.search(queries, k)
+            if self.tracer is not None:
+                with self.tracer.span("coord.segment", cat="serve",
+                                      track="coord",
+                                      target=f"seg{s.offset}") as sp:
+                    i, d, io = s.search(queries, k)
+                    sp["block_reads"] = int(io.sum())
+            else:
+                i, d, io = s.search(queries, k)
             ids.append(i)
             dists.append(d)
             offs.append(s.offset)
-            total_io += int(io.sum())
+            seg_io = int(io.sum())
+            total_io += seg_io
             bs = tgt.batch_stats(s)
             if bs:
                 total_t0 += int(np.asarray(bs["tier0_hits"]).sum())
@@ -320,6 +389,10 @@ class QueryCoordinator:
                 total_spec_h += int(np.asarray(bs["spec_hits"]).sum())
                 total_spec_w += int(np.asarray(bs["spec_wasted"]).sum())
                 total_hot += int(np.asarray(bs["hot_tier_hits"]).sum())
+            if self.metrics is not None:
+                # per-target attribution: which segment the reads hit
+                self.metrics.counter("serve.block_reads",
+                                     f"seg{s.offset}").inc(seg_io)
         gi, gd = merge_topk(ids, dists, offs, k)
         stats = {"segments_searched": len(targets),
                  "total_block_reads": total_io,
@@ -353,6 +426,8 @@ class QueryCoordinator:
         stats["cache_misses"] = misses
         stats["cache_hit_rate"] = (hits / (hits + misses)
                                    if hits or misses else 0.0)
+        if self.metrics is not None:
+            self._publish_metrics(queries.shape[0], stats)
         # fold this batch's device columns into the scheduler's window
         # and let it evaluate on its own cadence
         if self.scheduler is not None:
@@ -365,4 +440,38 @@ class QueryCoordinator:
                     "max_drift": decision.max_drift,
                     "tier0_hit_rate": decision.tier0_hit_rate,
                     "modeled_step_us": decision.modeled_step_us}
+                if self.metrics is not None:
+                    self.metrics.counter("sched.evals").inc()
+                    self.metrics.counter("sched.repacks").inc(
+                        decision.repacked)
         return gi, gd, stats
+
+    def _publish_metrics(self, n_queries: int, stats: Dict) -> None:
+        """Republish the batch stats through the metrics registry: the
+        same numbers the stats dict returns, under ``serve.*`` names, so
+        a dashboard scraping ``metrics.snapshot()`` and a caller reading
+        the dict cannot disagree."""
+        m = self.metrics
+        m.counter("serve.batches").inc()
+        m.counter("serve.queries").inc(n_queries)
+        m.counter("serve.total_block_reads").inc(
+            stats["total_block_reads"])
+        m.counter("serve.total_tier0_hits").inc(
+            stats["total_tier0_hits"])
+        m.counter("serve.total_dedup_saved").inc(
+            stats["total_dedup_saved"])
+        m.counter("serve.total_dedup_cross").inc(
+            stats["total_dedup_cross"])
+        m.counter("serve.total_spec_hits").inc(
+            stats["total_spec_hits"])
+        m.counter("serve.total_spec_wasted").inc(
+            stats["total_spec_wasted"])
+        m.counter("serve.total_hot_tier_hits").inc(
+            stats["total_hot_tier_hits"])
+        m.counter("serve.cache_hits").inc(stats["cache_hits"])
+        m.counter("serve.cache_misses").inc(stats["cache_misses"])
+        m.gauge("serve.cache_hit_rate").set(stats["cache_hit_rate"])
+        m.histogram("serve.batch_block_reads").observe(
+            stats["total_block_reads"])
+        m.histogram("serve.batch_mean_reads_per_query").observe(
+            stats["mean_block_reads_per_query"])

@@ -26,8 +26,9 @@ observes and the device's tier-0 hot-tile pack:
     copies, so a repack never changes ``(ids, dists)``; only the io /
     tier0_hits split moves.
 
-The tracer hooks of the JAX class (``sched.*`` events) are not ported
-yet.
+With a tracer (``tracer=``, or the coordinator's), every evaluation,
+repack and layout swap is an instant event: ``sched.eval``,
+``sched.repack``, ``sched.layout_swap``.
 """
 from __future__ import annotations
 
@@ -75,7 +76,8 @@ class RepackScheduler:
     """
 
     def __init__(self, params: RepackParams = RepackParams(),
-                 cost_model: Optional[CostModel] = None):
+                 cost_model: Optional[CostModel] = None,
+                 tracer=None):
         self.params = params
         if cost_model is None:
             # default pricing: the TPU-HBM preset with any calibrated
@@ -83,6 +85,8 @@ class RepackScheduler:
             # (backend mismatch / missing file -> the hardcoded preset)
             cost_model = load_calibrated(TPU_HBM_SEGMENT)
         self.cost_model = cost_model
+        self.tracer = tracer            # obs: sched.eval / sched.repack
+        #                                 events, None-guarded
         self._feeds: List[CachedBlockStore] = []
         self._marks: List[Counter] = []     # per-feed freq watermarks
         self._targets: List = []            # SegmentServers with .host
@@ -156,6 +160,11 @@ class RepackScheduler:
                  if 0 <= int(b) < total})
         # the swapped target's telemetry window restarts with its layout
         self._server_stats.pop(id(server), None)
+        if self.tracer is not None:
+            self.tracer.event(
+                "sched.layout_swap", cat="sched", track="sched",
+                target=str(getattr(server, "offset", -1)),
+                window_blocks=len(self._window))
 
     # --------------------------------------------------------- telemetry
     def note_batch(self, servers: Sequence = ()) -> None:
@@ -271,6 +280,12 @@ class RepackScheduler:
             moved = server.repack(obs, plan=plan)
             changed += moved
             repacked += 1
+            if self.tracer is not None:
+                self.tracer.event(
+                    "sched.repack", cat="sched", track="sched",
+                    target=str(getattr(server, "offset", i)),
+                    changed_slots=moved, drift=drift,
+                    tier0_hit_rate=own_rate)
             # the repacked target's telemetry restarts; siblings keep
             # their window counters
             self._server_stats.pop(id(server), None)
@@ -292,6 +307,12 @@ class RepackScheduler:
             evaluated=evaluated, repacked=repacked, changed_slots=changed,
             max_drift=max_drift, tier0_hit_rate=hit_rate,
             modeled_step_us=step_us, observed_blocks=len(union))
+        if self.tracer is not None:
+            self.tracer.event(
+                "sched.eval", cat="sched", track="sched",
+                evaluated=evaluated, repacked=repacked,
+                changed_slots=changed, max_drift=max_drift,
+                tier0_hit_rate=hit_rate, modeled_step_us=step_us)
         return self.last_decision
 
     def stats(self) -> Dict[str, float]:

@@ -2,8 +2,9 @@
 one abstraction for everything the serving plane can point a query
 batch at.
 
-Host segments (``HostSegmentServer``) and device segments
-(``SegmentServer``) are interchangeable behind this surface:
+Host segments (``HostSegmentServer``), device segments
+(``SegmentServer``) and mesh-routed segment groups
+(``router.MeshQueryRouter``) are interchangeable behind this surface:
 the ``QueryCoordinator`` scatters/merges over it, the
 ``RepackScheduler`` registers feeds/targets through it, and
 ``attach_shared_fetch_queue`` discovers cache-fronted stores with it —
@@ -27,8 +28,8 @@ The protocol has a small REQUIRED core and optional capability hooks:
   io plane   ``demand_feed()`` — the ``CachedBlockStore`` whose
              ``block_freq`` feeds the repack scheduler (None if
              uncached/deviceless)
-  obs        ``attach_obs(tracer, metrics)`` — wire the target into an
-             observability plane (no port target has one yet)
+  obs        ``attach_obs(tracer, metrics)`` — wire the target (and
+             whatever it owns) into the observability plane
 
 Consumers MUST go through the module-level adapter functions
 (``batch_stats(t)``, ``demand_feed(t)``, ...) rather than calling the

@@ -35,7 +35,9 @@ def test_port_has_files():
                 "io/cache.py", "io/cached_store.py", "io/async_fetch.py",
                 "io/prefetch.py", "serving/target.py",
                 "serving/batcher.py", "serving/scheduler.py",
-                "obs/calibrate.py"):
+                "obs/calibrate.py", "obs/clock.py", "obs/trace.py",
+                "obs/metrics.py", "obs/export.py", "serving/router.py",
+                "distributed/elastic.py", "launch/mesh.py"):
         assert pkg / mod in FILES
 
 

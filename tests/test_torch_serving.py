@@ -10,6 +10,7 @@ the port's on the CPU (the plain round stage), with short streams (16
 queries, at most 3 batches) to keep the run small.
 """
 import dataclasses
+import importlib
 import json
 from collections import Counter
 from types import SimpleNamespace
@@ -46,11 +47,13 @@ from repro_torch.io import hotset as TH
 from repro_torch.io.cache import BlockCache as TBlockCache
 from repro_torch.io.cached_store import CachedBlockStore as TCachedStore
 from repro_torch.io.cached_store import cached_view as t_cached_view
-from repro_torch.obs import calibrate as TCAL
 from repro_torch.serving import batcher as TB
 from repro_torch.serving import coordinator as TC
 from repro_torch.serving import scheduler as TSCH
 from repro_torch.serving import target as TT
+
+# the module: the package's ``calibrate`` is the function, as in JAX's
+TCAL = importlib.import_module("repro_torch.obs.calibrate")
 
 CPU = "cpu"
 P_SRV = JP.DeviceSearchParams(k=10, candidates=48, max_hops=64,
