@@ -11,8 +11,9 @@ plane (the cache-fronted host block search, the coordinator, the request
 batcher and the repack scheduler), the build variants (the k-means
 packer, HNSW, BNS), the DiskANN-style baseline, the delta segment
 with its compaction and serving swaps, the observability plane (spans,
-metrics, the Chrome trace, a ``CostModel`` fitted to the card) and the
-mesh router over four segments on eight ranks of the card — on a
+metrics, the Chrome trace, a ``CostModel`` fitted to the card), the
+mesh router over four segments on eight ranks of the card and the
+multi-rank search step on a one-rank NCCL group — on a
 1,000,000 x 128 segment built from seeded clustered vectors, and checks
 them:
 
@@ -208,8 +209,24 @@ them:
      distinct segment (its replicas share it); one batch through a ``QueryCoordinator`` over the router;
      the routed median and ``per_rank_modeled_us`` (a ``CostModel``
      figure, not a time of the card);
- 19. summary: the launches of every kernel by phase (the build, Vamana,
-     each window of phases 6-18; phase 5's comparisons and the CPU
+ 19. search step: a one-rank NCCL group (a ``file://`` store in a
+     temporary directory, ``device_id`` the card; gloo in the CPU
+     rehearsal) and a (1, 1) ("data", "model") ``DeviceMesh``;
+     ``make_search_step``'s specs at JAX's production defaults on a
+     16 x 16 layout, each rank's bytes printed from them (not
+     allocated); ``fn`` on phase 3's segment as a ``[1, ...]`` stack with
+     phase 12's 4,096 queries at the step's default search (Γ = 64, 128
+     hops): gid, dists and the seven per-rank columns equal the direct
+     ``device_anns`` bit for bit, and the round kernels' launches equal
+     its rounds (the cut of scale: 1M vectors a rank at ε = 6, where the
+     spec sizes 2M at BIGANN's ε = 16); ``compressed_psum`` over the
+     group equals the plain formula on the card bit for bit; ``shard``
+     returns a CUDA ``DTensor`` with ``logical_spec``'s placements; the
+     step's and the direct search's medians over 4 alternating pairs,
+     then ``device_anns`` on the stack's own views against the direct
+     one (the segment's memory apart from the step's work);
+ 20. summary: the launches of every kernel by phase (the build, Vamana,
+     each window of phases 6-19; phase 5's comparisons and the CPU
      comparisons and timings of phases 13, 15 and 16 are not counted)
      and in total; one JSON line of the kernels with the totals, the card
      line, and last ``{"ok": true, "device": {...}}``.
@@ -229,6 +246,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import datetime
 import json
 import math
 import os
@@ -239,6 +257,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
@@ -286,6 +305,7 @@ CALIB_SIZES = (128, 256, 512, 1024, 2048, 4096)   # phase 17's fit
 CALIB_REPEATS = 2                    # batches of each size in the fit
 MESH_SEGMENTS, MESH_RANKS = 4, 8     # phase 18: JAX's mesh_bench layout
 MESH_UNIFORM, MESH_SKEWED = 2, 6     # phase 18: phase 6's batches; skewed
+STEP_PAIRS = 4                       # phase 19: step/direct timing pairs
 
 
 class SmokeFailure(Exception):
@@ -471,11 +491,11 @@ def main() -> int:
     from repro_torch.core.delta import (DeltaSegment, swap_into_device_server,
                                         swap_into_host_server)
     from repro_torch.core import navgraph as NG
-    from repro_torch.core.params import (SEGMENT_BENCH_ASYNC,
-                                         SEGMENT_BENCH_CACHED,
-                                         SEGMENT_BENCH_DEVICE,
-                                         SERVE_DEVICE_SEARCH, SERVE_REPACK,
-                                         HotTierParams)
+    from repro_torch.configs.starling_segment import (SEGMENT_BENCH_ASYNC,
+                                                      SEGMENT_BENCH_CACHED,
+                                                      SEGMENT_BENCH_DEVICE,
+                                                      SERVE_REPACK)
+    from repro_torch.core.params import DeviceSearchParams, HotTierParams
     from repro_torch.core.search import anns, range_search
     from repro_torch.core.segment import build_segment
     from repro_torch.data.vectors import clustered_vectors, query_set
@@ -488,8 +508,12 @@ def main() -> int:
     from repro_torch.kernels import pq_adc as PQK
     from repro_torch.kernels import tier0_fetch as T0
     from repro_torch.core.params import RouterParams
+    from repro_torch.distributed.compress import compressed_psum
     from repro_torch.distributed.elastic import plan_placement
-    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.distributed.sharding import (SINGLE_POD_RULES,
+                                                  logical_spec, placements,
+                                                  shard, use_rules)
+    from repro_torch.launch.mesh import make_debug_mesh, rules_for
     from repro_torch.obs import (CalibrationPreset, CalibrationSample,
                                  MetricsRegistry, Tracer, WallClock,
                                  calibrate, fold_round_log, load_calibrated,
@@ -497,13 +521,15 @@ def main() -> int:
                                  validate_chrome_trace, write_chrome_trace)
     from repro_torch.pq.pq import lut_batch, lut_host
     from repro_torch.serving.batcher import RequestBatcher
-    from repro_torch.serving.coordinator import (HostSegmentServer,
+    from repro_torch.serving.coordinator import (SERVE_DEVICE_SEARCH,
+                                                 HostSegmentServer,
                                                  QueryCoordinator,
                                                  SegmentServer,
                                                  attach_shared_fetch_queue,
                                                  merge_topk)
     from repro_torch.serving.router import MeshQueryRouter
     from repro_torch.serving.scheduler import RepackScheduler
+    from torch.distributed.tensor import DTensor
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2507,6 +2533,148 @@ def main() -> int:
               f"one device_anns a segment shared by its replicas); "
               f"rebalances {router.rebalances}")
         del router, msrv, coord_r, routed
+
+    with phase("19 search step"):
+        # make_search_step on a one-rank group (NCCL on the card, gloo in
+        # the rehearsal) and a (1, 1) ("data", "model") mesh: phase 3's
+        # segment as the [1, ...] stack, phase 12's batch as the rows
+        from torch.distributed.device_mesh import init_device_mesh
+        store = tempfile.TemporaryDirectory(prefix="chip_smoke_step_")
+        dist.init_process_group(
+            "nccl" if on_card else "gloo",
+            init_method=f"file://{store.name}/store", rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=300),
+            **({"device_id": torch.device(
+                "cuda", torch.cuda.current_device())} if on_card else {}))
+        try:
+            mesh = init_device_mesh(device.type, (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            prod = make_debug_mesh(16, 16)
+            _, (pseg, pq_spec) = DS.make_search_step(prod, rules_for(prod))
+            rank_b = {f.name: getattr(pseg, f.name).local_nbytes
+                      for f in dataclasses.fields(DS.DeviceSegment)}
+            print(f"  production specs (16 x 16 mesh, JAX's defaults: 2M "
+                  f"vectors a model rank, eps 16, bf16 vectors; not "
+                  f"allocated): each rank's segment "
+                  f"{sum(rank_b.values())} B ({rank_b}), queries "
+                  f"{pq_spec.local_nbytes} B of {pq_spec.shape}")
+            fn, (sseg, _) = DS.make_search_step(mesh, rules_for(mesh),
+                                                n_local=seg.num_vectors)
+            step_p = DeviceSearchParams(candidates=64, max_hops=128)
+            stacked = DS.stack_segments([ds])
+            qbig = torch.as_tensor(big, device=device)
+            K.reset_all_launches()
+            sync(device)
+            t0 = time.perf_counter()
+            out = fn(stacked, qbig)
+            sync(device)
+            step_ms = (time.perf_counter() - t0) * 1e3
+            got = take("19 search step")
+            direct = DS.device_anns(ds, qbig, step_p)
+            take("19 direct device_anns and checks")
+            want = (direct.ids, direct.dists, direct.io, direct.hops,
+                    direct.tier0_hits, direct.dedup_saved,
+                    direct.dedup_cross, direct.spec_hits,
+                    direct.spec_wasted)
+            names = ("gid", "dists", "io", "hops", "tier0_hits",
+                     "dedup_saved", "dedup_cross", "spec_hits",
+                     "spec_wasted")
+            for name, o, w in zip(names, out, want):
+                o = o.reshape(w.shape)
+                check(o.dtype == w.dtype and torch.equal(
+                    o.view(torch.int32) if o.dtype == torch.float32 else o,
+                    w.view(torch.int32) if w.dtype == torch.float32 else w),
+                      f"the search step's {name} differs from device_anns")
+            ids_s, d_s = out[0].cpu().numpy(), out[1].cpu().numpy()
+            check_results(big, ids_s, d_s)
+            if on_card:
+                check(got["gather_union"] == direct.rounds > 0
+                      and got["fused_round_rank"] == direct.rounds,
+                      "the step's launches do not follow its rounds")
+            print(f"  step on {BIG_BATCH} queries x {seg.num_vectors} "
+                  f"vectors (Γ {step_p.candidates}, {step_p.max_hops} hops):"
+                  f" {step_ms:.3f} ms, rounds {direct.rounds}, launches "
+                  f"{got}; gid, dists and the 7 columns equal device_anns "
+                  f"bit for bit; io {float(direct.io.float().mean()):.3f}"
+                  f" a query; arg shapes {tuple(sseg.vecs.shape)} "
+                  f"{sseg.vecs.dtype} (specs), {tuple(stacked.vecs.shape)}"
+                  f" {stacked.vecs.dtype} (served)")
+
+            # the int8 all-reduce over the group against the plain formula
+            gen = torch.Generator(device=device).manual_seed(args.seed)
+            grads = {"w": torch.randn(4096, 256, device=device,
+                                      generator=gen),
+                     "b": [torch.zeros(1024, device=device),
+                           torch.randn(333, device=device,
+                                       generator=gen) * 1e-3]}
+            errs = {"w": torch.randn(4096, 256, device=device,
+                                     generator=gen) * 1e-2,
+                    "b": [torch.zeros(1024, device=device),
+                          torch.zeros(333, device=device)]}
+            mean, err = compressed_psum(grads, errs, "data", mesh)
+            for g_, e_, m_, r_ in ((grads["w"], errs["w"], mean["w"],
+                                    err["w"]),
+                                   *zip(grads["b"], errs["b"], mean["b"],
+                                        err["b"])):
+                c_ = g_ + e_
+                s_ = torch.maximum(c_.abs().max() / 127.0, torch.tensor(
+                    1e-12, device=device))
+                q_ = torch.clamp(torch.round(c_ / s_), -127, 127)
+                check(torch.equal(m_, q_.to(torch.int32).to(torch.float32)
+                                  * s_ / 1)
+                      and torch.equal(r_, c_ - q_ * s_),
+                      "compressed_psum differs from the plain formula")
+            with use_rules(SINGLE_POD_RULES, mesh):
+                xs_ = shard(torch.randn(64, 32, device=device,
+                                        generator=gen), "batch", "embed")
+            pl_ = placements(logical_spec((64, 32), ("batch", "embed"),
+                                          SINGLE_POD_RULES, mesh), mesh)
+            check(isinstance(xs_, DTensor)
+                  and xs_.to_local().device.type == device.type
+                  and tuple(xs_.placements) == pl_,
+                  f"shard gave {type(xs_).__name__} {xs_.placements}")
+            print(f"  compressed_psum over the {dist.get_backend()} group "
+                  f"equals the plain formula bit for bit (3 leaves, one "
+                  f"all zero); shard -> {type(xs_).__name__} on "
+                  f"{xs_.to_local().device} with {tuple(xs_.placements)}")
+            take("19 direct device_anns and checks")
+
+            # the step against the direct device_anns, in alternating
+            # order; then device_anns on the stack's own [0] views against
+            # the direct one: it tells the segment's memory (a fresh
+            # contiguous stack against phase 3's arrays) from the step's
+            # own work (the gathers and the merge)
+            views = DS.DeviceSegment(**{
+                f.name: getattr(stacked, f.name)[0]
+                for f in dataclasses.fields(DS.DeviceSegment)})
+            arms = {"step": lambda: fn(stacked, qbig),
+                    "direct": lambda: DS.device_anns(ds, qbig, step_p),
+                    "views": lambda: DS.device_anns(views, qbig, step_p)}
+
+            def alternate(a, b):
+                times = {a: [], b: []}
+                for i in range(STEP_PAIRS):
+                    for which in ((a, b) if i % 2 == 0 else (b, a)):
+                        sync(device)
+                        t0 = time.perf_counter()
+                        arms[which]()
+                        sync(device)
+                        times[which].append(
+                            (time.perf_counter() - t0) * 1e3)
+                return times
+
+            for a, b in (("step", "direct"), ("views", "direct")):
+                times = alternate(a, b)
+                print(f"  {a} ms median {np.median(times[a]):.3f} "
+                      f"({[round(v, 3) for v in times[a]]}), {b} "
+                      f"device_anns ms median {np.median(times[b]):.3f} "
+                      f"({[round(v, 3) for v in times[b]]}), {STEP_PAIRS} "
+                      f"alternating pairs of {BIG_BATCH} queries; {card}")
+            take("19 timing")
+            del stacked, views, out, direct
+        finally:
+            dist.destroy_process_group()
+            store.cleanup()
 
     total = {name: sum(c[name] for c in by_phase.values())
              for name in KERNELS}

@@ -1,7 +1,7 @@
 """PyTorch + CUDA port of the Starling segment search (the JAX package
 ``repro`` is the reference it is tested against).
 
-Four paths are ported, each down to hand-written CUDA kernels for
+Five paths are ported, each down to hand-written CUDA kernels for
 Hopper (each with a plain PyTorch version that runs for CPU tensors):
   * the segment build: ``core.segment.build_segment`` -> ``core.graph``
     (Vamana, NSG), ``core.layout`` (BNP, BNF, GP3), ``core.navgraph``,
@@ -26,7 +26,14 @@ Hopper (each with a plain PyTorch version that runs for CPU tensors):
     taking its segment's ``device_anns`` (one a distinct segment, shared
     by its replicas) on the round kernels, merges the
     ranks' top-k (``core.device_search.merge_shard_topk``) and moves
-    replicas between ranks (``distributed.elastic``).
+    replicas between ranks (``distributed.elastic``);
+  * the search step over the ranks of a ``torch.distributed`` process
+    group: ``core.device_search.make_search_step`` (one segment a
+    ``model`` rank, the batch split over ``data``, an all-gather of the
+    k results), with ``distributed.sharding``'s logical-axis rules,
+    ``distributed.compress``'s int8 all-reduce and ``launch.mesh``'s
+    production mesh; ``configs`` holds the presets and the
+    architectures' shapes.
 
 Entry points take ``device=`` and default to ``"cuda"``; nothing falls
 back to the CPU when there is no card.

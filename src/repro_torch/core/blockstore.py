@@ -9,6 +9,9 @@ Byte accounting follows Example 2: γ = D·b + 4 + Λ·4 bytes per vertex,
   vid  [ρ, ε]        int32  vertex id per slot (-1 pad)
   vecs [ρ, ε, D]     f32    full-precision vectors
   meta [ρ, ε, 1+Λ]   int32  degree ‖ neighbour ids (-1 pad)
+
+``packed()`` returns them as one fused [ρ, ε·(D+1+Λ)] f32 array (ids
+bit-cast), as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -58,6 +61,12 @@ class BlockStore:
         """One I/O: (ids [ε], vecs [ε, D], deg [ε], nbrs [ε, Λ])."""
         return (self.vid[b], self.vecs[b],
                 self.meta[b, :, 0], self.meta[b, :, 1:])
+
+    def packed(self) -> np.ndarray:
+        """[ρ, ε·(D+1+Λ)] f32 fused tile (ids bit-cast to f32)."""
+        rho, eps, d = self.vecs.shape
+        meta_f = self.meta.view(np.float32).reshape(rho, eps, -1)
+        return np.concatenate([self.vecs, meta_f], axis=2).reshape(rho, -1)
 
 
 def build_store(x: np.ndarray, g: Graph, layout: BlockLayout,

@@ -1,6 +1,7 @@
 """Batched Starling search on the card (PyTorch port of
 ``repro.core.device_search``: ``from_segment``, ``device_anns``,
-``device_range_search`` and the online tier-0 ``repack_tier0``).
+``device_range_search``, the online tier-0 ``repack_tier0``, and the
+multi-rank ``make_search_step`` over ``torch.distributed``).
 
 One loop over rounds for a whole query batch. Each round every live
 query picks its F best open candidates; the round stage
@@ -795,3 +796,133 @@ def stack_segments(segments) -> DeviceSegment:
     return DeviceSegment(**{
         f.name: torch.stack([getattr(s, f.name) for s in segments])
         for f in dataclasses.fields(DeviceSegment)})
+
+
+# ------------------------------------------------- the multi-rank step
+
+@dataclasses.dataclass(frozen=True)
+class ArgSpec:
+    """A sharded argument described without allocating it (the
+    counterpart of JAX's sharded ``ShapeDtypeStruct``): the global
+    ``shape`` and ``dtype``, the ``spec`` (``distributed.sharding.
+    PartitionSpec``), its DTensor ``placements`` on the mesh and the
+    ``local_shape`` each rank holds."""
+    shape: tuple
+    dtype: torch.dtype
+    spec: tuple
+    placements: tuple
+    local_shape: tuple
+
+    @property
+    def local_nbytes(self) -> int:
+        """One rank's bytes of this argument."""
+        return (math.prod(self.local_shape)
+                * torch.empty((), dtype=self.dtype).element_size())
+
+
+def make_search_step(mesh, rules, *,
+                     n_local: int = 1 << 21, dim: int = 128,
+                     eps: int = 16, lam: int = 31, q_global: int = 4096,
+                     pq_m: int = 16, pq_k: int = 256,
+                     nav_frac: int = 64, nav_deg: int = 12,
+                     search: Optional[DeviceSearchParams] = None):
+    """Build ``(fn, (seg_specs, q_specs))``: the segment search over the
+    ranks of ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` with a
+    ``model`` axis) and the specs of its arguments.
+
+    Layout: every ``model`` rank owns an independent sub-segment of
+    ``n_local`` vectors (16 ranks x 2M = 33M vectors per pod row, the
+    paper's segment scale); queries are split over the other axes
+    (``data``, and ``pod``) and replicated over ``model``. ``rules`` is
+    taken for JAX's signature and not read.
+
+    ``fn(seg_local, q_local)`` is what JAX's ``local_search`` is under
+    ``shard_map``: every rank calls it with its own ``[1, ...]`` shard
+    of a ``stack_segments`` tree and its own rows of the batch, on the
+    mesh's device. It searches its segment with ``device_anns``,
+    all-gathers the k results over the ``model`` group (global id =
+    ``model`` coordinate x ``n_local`` + local id) and merges them in
+    the shared (dist, global id) order (``merge_shard_topk``). It
+    returns (gid, dists, io, hops, tier0_hits, dedup_saved,
+    dedup_cross, spec_hits, spec_wasted): the merged [Q_local, k] and
+    each rank's [Q_local, 1] columns. The specs size the production
+    arguments (``vecs`` and ``hot_vecs`` in bf16; ``search``'s tier-0
+    budget sizes the hot pack) without allocating them; ``fn`` casts
+    both to f32."""
+    from repro_torch.distributed.sharding import (PartitionSpec,
+                                                  axis_names, axis_sizes,
+                                                  placements)
+
+    if search is None:
+        search = DeviceSearchParams(candidates=64, max_hops=128)
+    sizes = axis_sizes(mesh)
+    model_n = sizes["model"]
+    data_axes = tuple(a for a in axis_names(mesh) if a != "model")
+    rho = n_local // eps
+    hot_n = max(int(search.tier0_frac * rho), 1)
+    nav_n = n_local // nav_frac
+    dsub = dim // pq_m
+
+    def sds(shape, dtype, spec):
+        local = list(shape)
+        for i, entry in enumerate(spec):
+            for a in (() if entry is None else entry
+                      if isinstance(entry, tuple) else (entry,)):
+                local[i] //= sizes[a]
+        return ArgSpec(tuple(shape), dtype, spec, placements(spec, mesh),
+                       tuple(local))
+
+    seg_spec = PartitionSpec("model")
+    i32 = torch.int32
+    seg_specs = DeviceSegment(
+        vecs=sds((model_n, rho, eps, dim), torch.bfloat16, seg_spec),
+        vid=sds((model_n, rho, eps), i32, seg_spec),
+        deg=sds((model_n, rho, eps), i32, seg_spec),
+        nbrs=sds((model_n, rho, eps, lam), i32, seg_spec),
+        block_of=sds((model_n, n_local), i32, seg_spec),
+        pq_codes=sds((model_n, n_local, pq_m), torch.uint8, seg_spec),
+        pq_cent=sds((model_n, pq_m, pq_k, dsub), torch.float32, seg_spec),
+        nav_vecs=sds((model_n, nav_n, dim), torch.float32, seg_spec),
+        nav_adj=sds((model_n, nav_n, nav_deg), i32, seg_spec),
+        nav_ids=sds((model_n, nav_n), i32, seg_spec),
+        nav_entry=sds((model_n,), i32, seg_spec),
+        hot_vecs=sds((model_n, hot_n, eps, dim), torch.bfloat16, seg_spec),
+        hot_vid=sds((model_n, hot_n, eps), i32, seg_spec),
+        hot_nbrs=sds((model_n, hot_n, eps, lam), i32, seg_spec),
+        hot_slot_of=sds((model_n, rho), i32, seg_spec),
+    )
+    q_specs = sds((q_global, dim), torch.float32, PartitionSpec(data_axes))
+
+    def fn(seg: DeviceSegment, queries: torch.Tensor):
+        import torch.distributed as dist
+        if seg.vecs.device.type != mesh.device_type:
+            raise ValueError(f"segment shard on {seg.vecs.device}, mesh on "
+                             f"{mesh.device_type}")
+        seg = DeviceSegment(**{f.name: getattr(seg, f.name)[0]
+                               for f in dataclasses.fields(DeviceSegment)})
+        seg = dataclasses.replace(
+            seg, vecs=seg.vecs.to(torch.float32),
+            hot_vecs=seg.hot_vecs.to(torch.float32))
+        r = device_anns(seg, queries, search)
+        # hierarchical top-k merge over segment ranks: all-gather k
+        # results per rank (O(k) bytes cross-rank, not O(Gamma)), merged
+        # in the shared (dist, global id) order, so the result is
+        # placement-invariant and bit-identical to the host
+        # ``serving.merge_topk`` concat over the same shards
+        group = mesh.get_group("model")
+        s = dist.get_world_size(group)
+        base = mesh.get_local_rank("model") * n_local
+        glob = torch.where(r.ids >= 0, r.ids + base,
+                           torch.full_like(r.ids, -1)).contiguous()
+        gids = [torch.empty_like(glob) for _ in range(s)]
+        gd = [torch.empty_like(r.dists) for _ in range(s)]
+        dist.all_gather(gids, glob, group=group)
+        dist.all_gather(gd, r.dists.contiguous(), group=group)
+        gid, out_d = merge_shard_topk(torch.stack(gids), torch.stack(gd),
+                                      glob.shape[1])
+        return (gid, out_d) + tuple(
+            c[:, None] for c in (r.io, r.hops, r.tier0_hits,
+                                 r.dedup_saved, r.dedup_cross,
+                                 r.spec_hits, r.spec_wasted))
+
+    return fn, (seg_specs, q_specs)

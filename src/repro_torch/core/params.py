@@ -1,8 +1,9 @@
 """Parameter dataclasses of the segment, its host search and serving
 plane, and the device search.
 
-Copies of ``repro.core.params`` / ``repro.configs.starling_segment``
-with the same field names, so one set of values drives both packages.
+Copies of ``repro.core.params`` with the same field names, so one set of
+values drives both packages (the presets built from them live in
+``configs.starling_segment`` and ``serving.coordinator``, as in JAX).
 Only the fields this package reads are kept (the build's graph, layout,
 navigation-graph and budget knobs, the host search's, the block cache's
 and the device tier-0 budget, the repack scheduler's, the device
@@ -13,6 +14,7 @@ round stage, the counterpart of the JAX ``"jnp"``).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +51,12 @@ class LayoutParams:
             raise ValueError(
                 f"vertex ({gamma}B) does not fit a {self.block_kb}KB block")
         return eps
+
+    def num_blocks(self, n: int, dim: int, max_degree: int,
+                   dtype_bytes: int = 4) -> int:
+        """ρ = ⌈n/ε⌉ blocks of n vertices."""
+        eps = self.verts_per_block(dim, max_degree, dtype_bytes)
+        return math.ceil(n / eps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,49 +319,3 @@ class DeviceSearchParams:
             raise ValueError("compact_frac must be in [0, 1]")
         if self.round_tile_cap < 0:
             raise ValueError("round_tile_cap must be >= 0 (0 = BQ)")
-
-
-# the bench segment (repro.configs.starling_segment SEGMENT_BENCH: the
-# paper's BIGANN knobs — Λ=24, L=64, α=1.2, BNF with β=8 and τ=0.001,
-# PQ M=8, navigation graph μ=0.1, Λ'=12, L'=32, Γ=48, σ=0.3, φ=0.5); the
-# same segment with the host block cache at 10% of the block file (a
-# quarter pinned, LRU, 4-wide prefetch), with the async tiered cache at
-# the same budget (a quarter of it compressed summaries, an 8-deep fetch
-# queue), and with the device tier-0 hot-tile pack at 10%
-SEGMENT_BENCH = SegmentParams(
-    graph=GraphParams(max_degree=24, build_beam=64, alpha=1.2,
-                      algo="vamana"),
-    layout=LayoutParams(block_kb=4.0, shuffle="bnf", bnf_iters=8,
-                        gain_tau=0.001),
-    pq=PQParams(num_subspaces=8, num_centroids=256, train_iters=12),
-    nav=NavGraphParams(sample_ratio=0.1, max_degree=12, build_beam=32,
-                       search_beam=16, num_entry_points=4),
-    search=SearchParams(candidate_size=48, pruning_ratio=0.3,
-                        rs_ratio=0.5),
-    metric="l2",
-)
-SEGMENT_BENCH_CACHED = dataclasses.replace(
-    SEGMENT_BENCH,
-    cache=CacheParams(budget_frac=0.10, policy="lru", pin_fraction=0.25,
-                      prefetch_width=4))
-SEGMENT_BENCH_ASYNC = dataclasses.replace(
-    SEGMENT_BENCH,
-    cache=CacheParams(budget_frac=0.10, policy="lru", pin_fraction=0.25,
-                      prefetch_width=4, tier2_frac=0.25,
-                      tier2_compression=16, queue_depth=8))
-SEGMENT_BENCH_DEVICE = dataclasses.replace(
-    SEGMENT_BENCH, cache=CacheParams(tier0_frac=0.10))
-
-# the divergence-aware batched preset: 2-wide fetch, compaction under
-# 25% live, deep safety valve (repro.configs.starling_segment)
-DEVICE_SEARCH_BATCH = DeviceSearchParams(candidates=48, max_hops=256,
-                                         fetch_width=2, compact_frac=0.25)
-# the serving preset (repro.serving.coordinator.SERVE_DEVICE_SEARCH)
-SERVE_DEVICE_SEARCH = dataclasses.replace(DEVICE_SEARCH_BATCH,
-                                          candidates=64)
-
-# the serving plane's repack control loop: evaluate every 4 batches, fire
-# only when >= 25% of the tier-0 pack would change, and leave a pack
-# alone while it absorbs >= 95% of block touches
-SERVE_REPACK = RepackParams(interval_batches=4, hysteresis=0.25,
-                            min_observed=1, hit_rate_ceiling=0.95)

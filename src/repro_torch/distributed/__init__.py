@@ -1,0 +1,15 @@
+# Distribution substrate (port of ``repro.distributed``):
+#   sharding — logical-axis rules -> PartitionSpec / DTensor placements
+#   compress — int8 gradient all-reduce with error feedback
+#   elastic  — re-mesh planner for node loss (shrink data axis, keep
+#              batch) and the router's segment placement
+# ``hlo`` (collective bytes from HLO text) comes with the slice that
+# ports the LM's dry run.
+from repro_torch.distributed.sharding import (AxisRules, SINGLE_POD_RULES,
+                                              MULTI_POD_RULES, logical_spec,
+                                              shard, set_rules,
+                                              current_rules,
+                                              param_sharding_tree)
+from repro_torch.distributed.compress import (compress_with_feedback,
+                                              compressed_psum, dequantize,
+                                              ef_init, quantize)

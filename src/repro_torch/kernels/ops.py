@@ -64,7 +64,7 @@ def fused_round(queries: torch.Tensor, u: torch.Tensor,
                 hot_nbrs: torch.Tensor, vecs: torch.Tensor,
                 vid: torch.Tensor, nbrs: torch.Tensor, n_expand: int,
                 metric: str = "l2", bq: int = None,
-                fuse_union: bool = True):
+                fuse_union: bool = False):
     """The round stage at any batch size: padded query rows carry
     ``u = -1`` (converged), so all-pad tiles take the rank kernel's
     skip path; their outputs are sliced off."""

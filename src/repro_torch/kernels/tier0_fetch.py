@@ -170,7 +170,7 @@ def fused_round_rank(queries, u, rank2d, uniq, hot_slot_of, hot_vecs,
 def fused_round(queries, u, block_of, hot_slot_of, hot_vecs, hot_vid,
                 hot_nbrs, vecs, vid, nbrs, n_expand: int,
                 metric: str = "l2", bq: int = BQ,
-                fuse_union: bool = True):
+                fuse_union: bool = False):
     """One search round's fetch pipeline, batch-scope.
 
     queries [Q, D] f32; u [Q, F] i32 picked ids (-1 = converged/empty);

@@ -33,13 +33,20 @@ import torch
 
 from repro_torch.core.device_search import (DeviceSegment, device_anns,
                                             repack_tier0)
-from repro_torch.core.params import (SERVE_DEVICE_SEARCH,
-                                     DeviceSearchParams, SearchParams)
+from repro_torch.configs.starling_segment import DEVICE_SEARCH_BATCH
+from repro_torch.core.params import DeviceSearchParams, SearchParams
 from repro_torch.core.search import SegmentView, anns
 from repro_torch.io.async_fetch import AsyncFetchQueue
 from repro_torch.io.cached_store import CachedBlockStore
 from repro_torch.io.hottier import merge_hot_cold
 from repro_torch.serving import target as tgt
+
+# serving default: the divergence-aware batched preset (wide fetch +
+# cross-query dedup + active-query compaction) at the paper's Γ; the
+# tier-0 budget rides on the segment arrays themselves
+# (``from_segment``), not on these search knobs
+SERVE_DEVICE_SEARCH = dataclasses.replace(DEVICE_SEARCH_BATCH,
+                                          candidates=64)
 
 
 def merge_topk(ids: Sequence[np.ndarray], dists: Sequence[np.ndarray],

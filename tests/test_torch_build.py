@@ -40,6 +40,7 @@ from repro_torch.core import graph as TG
 from repro_torch.core import layout as TL
 from repro_torch.core import navgraph as TN
 from repro_torch.core import params as TP
+from repro_torch.configs import starling_segment as TSS
 from repro_torch.core import segment as TS
 from repro_torch.pq import pq as TPQ
 
@@ -586,7 +587,7 @@ def test_build_segment_refuses_the_host_cache(small_data):
     (``io.cached_store``) and charges its budget as C_cache."""
     from repro_torch.io.cached_store import CachedBlockStore
     x, _ = small_data
-    p = dataclasses.replace(TP.SEGMENT_BENCH,
+    p = dataclasses.replace(TSS.SEGMENT_BENCH,
                             cache=TP.CacheParams(budget_frac=0.1))
     seg = TS.build_segment(x[:100], p, device=CPU)
     store = seg.view.store

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core import distances as D
 from repro_torch.core import graph as G
+from repro_torch.configs.starling_segment import SEGMENT_BENCH_DEVICE
 from repro_torch.core import params as P
 from repro_torch.core import segment as S
 
@@ -58,7 +59,7 @@ def test_cuda_graph_equals_cpu(cuda, algo):
 def test_cuda_build_segment_equals_cpu(cuda):
     x = _ints(2000, 32, 3)
     params = dataclasses.replace(
-        P.SEGMENT_BENCH_DEVICE,
+        SEGMENT_BENCH_DEVICE,
         graph=P.GraphParams(max_degree=16, build_beam=32, algo="nsg"),
         layout=P.LayoutParams(block_kb=1.0, shuffle="bnf", bnf_iters=4),
         nav=P.NavGraphParams(sample_ratio=0.1, max_degree=8, build_beam=16))

@@ -342,10 +342,12 @@ def test_presets_match_jax():
     from repro.configs.starling_segment import (DEVICE_SEARCH_BATCH,
                                                 SEGMENT_BENCH_DEVICE)
     from repro.serving.coordinator import SERVE_DEVICE_SEARCH
-    for t, j in ((TP.DEVICE_SEARCH_BATCH, DEVICE_SEARCH_BATCH),
-                 (TP.SERVE_DEVICE_SEARCH, SERVE_DEVICE_SEARCH)):
+    from repro_torch.configs import starling_segment as TSS
+    from repro_torch.serving import coordinator as TC
+    for t, j in ((TSS.DEVICE_SEARCH_BATCH, DEVICE_SEARCH_BATCH),
+                 (TC.SERVE_DEVICE_SEARCH, SERVE_DEVICE_SEARCH)):
         assert t == _tparams(j)
-    seg = TP.SEGMENT_BENCH_DEVICE
+    seg = TSS.SEGMENT_BENCH_DEVICE
     assert seg.cache.tier0_frac == SEGMENT_BENCH_DEVICE.cache.tier0_frac
     assert seg.graph.max_degree == SEGMENT_BENCH_DEVICE.graph.max_degree
     assert seg.layout.block_kb == SEGMENT_BENCH_DEVICE.layout.block_kb
@@ -359,10 +361,10 @@ def test_presets_match_jax():
     from repro.configs import starling_segment as JSS
     for name in ("SEGMENT_BENCH", "SEGMENT_BENCH_CACHED",
                  "SEGMENT_BENCH_ASYNC", "SEGMENT_BENCH_DEVICE"):
-        t, j = getattr(TP, name), getattr(JSS, name)
+        t, j = getattr(TSS, name), getattr(JSS, name)
         assert dataclasses.asdict(t.search) == dataclasses.asdict(j.search)
         assert dataclasses.asdict(t.cache) == dataclasses.asdict(j.cache)
-    assert dataclasses.asdict(TP.SERVE_REPACK) == dataclasses.asdict(
+    assert dataclasses.asdict(TSS.SERVE_REPACK) == dataclasses.asdict(
         JSS.SERVE_REPACK)
 
 

@@ -458,18 +458,23 @@ def test_cuda_gather_union_any_r_and_rho(cuda, r, rho, eps, d, lam, lo, hi):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fuse_union", [True, False])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("case", sorted(ROUND_CASES))
-def test_cuda_fused_round_matches_plain(cuda, case, metric):
+def test_cuda_fused_round_matches_plain(cuda, case, metric, fuse_union):
     q, rho, eps, d, f, hot_n, bq, idle, lam, n_expand = ROUND_CASES[case]
     args = _round_case(q, rho, eps, d, f, hot_n, lam=lam, seed=q * rho,
                        idle_rows=idle)
     TT.reset_launches()
-    got = TO.fused_round(*_on(cuda, args), n_expand, metric=metric, bq=bq)
+    got = TO.fused_round(*_on(cuda, args), n_expand, metric=metric, bq=bq,
+                         fuse_union=fuse_union)
     torch.cuda.synchronize()
     want = TO.fused_round(*[torch.as_tensor(a) for a in args], n_expand,
-                          metric=metric, bq=bq)
+                          metric=metric, bq=bq, fuse_union=fuse_union)
+    gather = "gather_union" if fuse_union else "gather_unique"
+    other = "gather_unique" if fuse_union else "gather_union"
     assert TT.LAUNCHES["fused_round_rank"] == 1
+    assert TT.LAUNCHES[gather] == 1 and TT.LAUNCHES[other] == 0
     for i in (1, 2, 3):
         np.testing.assert_array_equal(got[i].cpu().numpy(),
                                       want[i].numpy())

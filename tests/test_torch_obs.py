@@ -32,6 +32,7 @@ from test_torch_serving import (JAX, TORCH, _device_server,  # noqa: F401
 import repro_torch.obs as TO
 from repro_torch.core import iostats as TI
 from repro_torch.core import params as TP
+from repro_torch.configs import starling_segment as TSS
 from repro_torch.core.segment import load_segment
 from repro_torch.io import hottier as TH
 
@@ -45,7 +46,7 @@ TM = SimpleNamespace(**vars(TORCH), O=TO, I=TI, P=TP,
                          **dataclasses.asdict(p)),
                      build_hot_tier=lambda seg, p: TH.build_hot_tier(
                          seg, p, device=CPU),
-                     async_preset=TP.SEGMENT_BENCH_ASYNC)
+                     async_preset=TSS.SEGMENT_BENCH_ASYNC)
 
 
 def both(fn, *args, segs=None):

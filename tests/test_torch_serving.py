@@ -42,6 +42,7 @@ from test_torch_device_search import _tparams
 from repro_torch.core import device_search as TDS
 from repro_torch.core import iostats as TI
 from repro_torch.core import params as TP
+from repro_torch.configs import starling_segment as TSS
 from repro_torch.core.blockstore import BlockStore as TBlockStore
 from repro_torch.io import hotset as TH
 from repro_torch.io.cache import BlockCache as TBlockCache
@@ -553,7 +554,7 @@ def test_params_defaults_and_validation_equal_jax():
             TP.CacheParams(**bad)
         with pytest.raises(ValueError):
             JP.CacheParams(**bad)
-    cp = TP.SEGMENT_BENCH_ASYNC.cache
+    cp = TSS.SEGMENT_BENCH_ASYNC.cache
     assert cp.enabled and not cp.tier0_enabled
     assert cp.resolve_budget(1000) == JP.CacheParams(
         **dataclasses.asdict(cp)).resolve_budget(1000) == 100
