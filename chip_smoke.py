@@ -225,8 +225,29 @@ them:
      step's and the direct search's medians over 4 alternating pairs,
      then ``device_anns`` on the stack's own views against the direct
      one (the segment's memory apart from the step's work);
- 20. summary: the launches of every kernel by phase (the build, Vamana,
-     each window of phases 6-19; phase 5's comparisons and the CPU
+ 20. lm serve: ``launch.serve``'s prefill and decode step on
+     ``gemma3-1b`` (8 x 1,024 tokens: the blockwise attention, 5:1
+     sliding and global layers), ``zamba2-1.2b`` and ``rwkv6-1.6b`` (8 x
+     512 each) at their full published size, depth included, with seeded
+     weights (``lm.init_params`` on the card, cast to bf16 once): 32
+     greedy decode steps on a bf16 cache, logits finite, tokens under the
+     vocabulary; prefill ms and tokens/s, the decode's median ms a step
+     against its weight-read bound, peak memory. The same 32 steps again
+     in f32 on the f32 master weights (an f32 cache, fed the bf16 run's
+     tokens) must match the teacher-forced f32 ``forward`` within
+     ``tests/test_models.py``'s bound (0.05 x scale + 0.05; zamba2's 544
+     tokens at a Mamba2 chunk of 32, which divides them). The bf16
+     decode's distance from the bf16 forward is printed, not held: at
+     full depth the two orders' rounding differences grow through the
+     recurrent trunks past that bound. Then each model cut to 2 layers
+     (zamba2: 7, one group with its shared attention and a tail layer)
+     at f32 on the card against the same weights on the CPU over 2 x 64
+     tokens (1e-4 x scale + 1e-5); every smoke architecture's decode
+     against its forward on the card (the bound above). No kernel of
+     ``kernels/csrc`` runs here (``models/*`` has no ``pallas_call``):
+     its launches row is empty;
+ 21. summary: the launches of every kernel by phase (the build, Vamana,
+     each window of phases 6-20; phase 5's comparisons and the CPU
      comparisons and timings of phases 13, 15 and 16 are not counted)
      and in total; one JSON line of the kernels with the totals, the card
      line, and last ``{"ok": true, "device": {...}}``.
@@ -239,7 +260,9 @@ Any failed check exits non-zero, and so does a run without a CUDA card
 or from a directory without the port's package (``src/repro_torch``)
 beside the script. ``--device cpu --n 20000`` rehearses the whole script
 on the CPU with the plain versions (for rehearsal only; its Vamana phase
-then builds n/4 vectors, its HNSW n/2).
+then builds n/4 vectors, its HNSW n/2, and phase 20 serves the smoke
+configurations of the three models, 2 x 128 tokens, without the
+card-against-CPU check).
 """
 from __future__ import annotations
 
@@ -306,6 +329,11 @@ CALIB_REPEATS = 2                    # batches of each size in the fit
 MESH_SEGMENTS, MESH_RANKS = 4, 8     # phase 18: JAX's mesh_bench layout
 MESH_UNIFORM, MESH_SKEWED = 2, 6     # phase 18: phase 6's batches; skewed
 STEP_PAIRS = 4                       # phase 19: step/direct timing pairs
+LM_PROMPTS = {"gemma3-1b": 1024,     # phase 20: the served models at full
+              "zamba2-1.2b": 512,    # size and their prompt lengths (a
+              "rwkv6-1.6b": 512}     # multiple of Mamba2's 128, RWKV's 16)
+LM_BATCH, LM_DECODE = 8, 32          # phase 20: prompts; decode steps
+LM_CHECK_TOKENS = 64                 # phase 20: card against CPU, f32
 
 
 class SmokeFailure(Exception):
@@ -454,6 +482,233 @@ def l2_tile_by_call_site(tally: dict, l2, ops, sites):
         for m, n, fn in saved:
             setattr(m, n, fn)
         ops.pairwise_l2 = pairwise_l2
+
+
+def lm_serve(device, on_card: bool, card: str, seed: int) -> None:
+    """Phase 20: the LM serving path (``launch.serve`` over ``models/lm``)
+    at full size on the card; see the module docstring."""
+    from repro_torch.configs import CONFIGS, SMOKE_CONFIGS
+    from repro_torch.launch.serve import make_prefill, make_serve_step
+    from repro_torch.models import lm as LM
+
+    def bound(ref, got, f32):
+        """(max |diff|, the bound): f32 1e-4 x scale + 1e-5, bf16 0.05 x
+        scale + 0.05 (``tests/test_models.py``)."""
+        ref, got = ref.float(), got.float().to(ref.device)
+        scale = float(ref.abs().max())
+        return (float((ref - got).abs().max()),
+                1e-4 * scale + 1e-5 if f32 else 0.05 * scale + 0.05)
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size()
+                   for t in _leaves(tree))
+
+    def vocab(cfg, t):
+        return t[..., :cfg.vocab_size]          # padded columns: -1e30
+
+    def decode(cfg, params, prompt, max_len, cache_dtype, feed=None):
+        """``launch.serve``'s prefill (twice: the first call warms up; a
+        cache in another dtype than its bf16 through ``lm.prefill``), then
+        ``LM_DECODE`` steps, greedy or fed ``feed``'s tokens: prefill
+        ms, step ms, the last prefill row and the steps' logits, the fed
+        tokens, the last greedy token, the cache's bytes."""
+        prefill = (make_prefill(cfg, max_len) if cache_dtype == torch.bfloat16
+                   else lambda p, b: LM.prefill(cfg, p, b["tokens"], max_len,
+                                                cache_dtype=cache_dtype))
+        serve = make_serve_step(cfg)
+        pre_ms = []
+        for _ in range(2 if feed is None else 1):
+            sync(device)
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, {"tokens": prompt})
+            sync(device)
+            pre_ms.append((time.perf_counter() - t0) * 1e3)
+        check(tuple(logits.shape) == (prompt.shape[0], prompt.shape[1],
+                                      cfg.padded_vocab)
+              and bool(torch.isfinite(vocab(cfg, logits)).all()),
+              f"{cfg.name}: prefill logits not finite or misshapen")
+        cache_bytes = nbytes(cache)
+        rows = [logits[:, -1:].clone()]
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        del logits
+        fed, dec_ms = [], []
+        for i in range(LM_DECODE):
+            fed.append(tok if feed is None else feed[:, i:i + 1])
+            sync(device)
+            t0 = time.perf_counter()
+            lg, cache = serve(params, cache, fed[-1])
+            tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+            sync(device)
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append(lg)
+        dec = vocab(cfg, torch.cat(rows, dim=1))
+        check(bool(torch.isfinite(dec).all()),
+              f"{cfg.name}: decode logits not finite")
+        return (pre_ms, dec_ms, dec, torch.cat(fed, dim=1), tok, cache_bytes,
+                cache)
+
+    def profile_step(cfg, params, cache, tok):
+        """One more decode step under ``torch.profiler``: wall ms, device
+        busy ms, and the kernel launches the host made."""
+        from torch.profiler import ProfilerActivity, profile
+        serve = make_serve_step(cfg)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sync(device)
+            t0 = time.perf_counter()
+            serve(params, cache, tok)
+            sync(device)
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = prof.key_averages()
+        busy = sum(getattr(e, "self_device_time_total", 0)
+                   for e in rows) / 1e3
+        launches = sum(e.count for e in rows if e.key == "cudaLaunchKernel")
+        return wall, busy, launches
+
+    def against_forward(cfg, params, prompt, fed, dec):
+        """The decode's logits against the teacher-forced ``forward`` over
+        the prompt and the fed tokens (Mamba2's scan wants a chunk that
+        divides the length: the same scan, chunked finer)."""
+        seq = torch.cat([prompt, fed], dim=1)
+        if cfg.family == "hybrid":
+            cfg = dataclasses.replace(
+                cfg, ssm_chunk=math.gcd(cfg.ssm_chunk, seq.shape[1]))
+        full, _, _ = LM.forward(cfg, params, seq)
+        return bound(vocab(cfg, full[:, prompt.shape[1] - 1:]), dec,
+                     f32=False)
+
+    batch = LM_BATCH if on_card else 2
+    for arch, plen in LM_PROMPTS.items():
+        cfg = CONFIGS[arch] if on_card else SMOKE_CONFIGS[arch]
+        if not on_card:
+            plen = 128
+        gen = torch.Generator(device=device).manual_seed(seed)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        max_len = plen + 2 * LM_DECODE
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            master = LM.init_params(cfg, gen, device=device)
+            n_params = sum(t.numel() for t in _leaves(master))
+            params = LM._cast_params(cfg, master)   # once, as greedy_decode
+            sync(device)
+            init_s = time.perf_counter() - t0
+            prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
+                                   generator=gen, device=device,
+                                   dtype=torch.int32)
+            pre_ms, dec_ms, dec, fed, tok, cache_bytes, cache = decode(
+                cfg, params, prompt, max_len, torch.bfloat16)
+            prof = (profile_step(cfg, params, cache, tok) if on_card
+                    else None)
+            del cache
+            gen_toks = torch.cat([fed[:, 1:], tok], dim=1)
+            check(bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size))
+                       .all()), f"{arch}: a token past the vocabulary")
+            peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                    if on_card else float("nan"))
+            bf16_diff, bf16_lim = against_forward(cfg, params, prompt, fed,
+                                                  dec)
+            w_bytes = nbytes(params)
+            del params, dec
+            # the same steps in f32 on the master weights, fed the bf16
+            # run's tokens: bf16 rounding differences between the two
+            # orders grow through the depth of the recurrent trunks
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            dec32 = decode(cfg32, master, prompt, max_len, torch.float32,
+                           feed=fed)[2]
+            diff, lim = against_forward(cfg32, master, prompt, fed, dec32)
+            check(diff <= lim, f"{arch}: the f32 decode differs from the "
+                  f"teacher-forced forward by {diff} (bound {lim})")
+        print(f"  {arch} ({cfg.family}, {cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab_size}): {n_params} "
+              f"parameters, f32 {nbytes(master)} B, bf16 copy {w_bytes} B, "
+              f"init {init_s:.3f} s; bf16 cache {cache_bytes} B for "
+              f"{batch} x {max_len}")
+        print(f"    prefill {batch} x {plen}: {pre_ms[1]:.3f} ms "
+              f"({batch * plen / pre_ms[1] * 1e3:.1f} tokens/s; first call "
+              f"{pre_ms[0]:.3f} ms); decode median {np.median(dec_ms):.3f} "
+              f"ms a step (min {min(dec_ms):.3f}, max {max(dec_ms):.3f}; "
+              f"{batch / np.median(dec_ms) * 1e3:.1f} tokens/s), bound "
+              f"{w_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms (the bf16 weights "
+              f"once a step); peak memory {peak:.3f} GiB (bf16 run); {card}")
+        if prof is not None:
+            print(f"    one decode step profiled: wall {prof[0]:.3f} ms, "
+                  f"device busy {prof[1]:.3f} ms, idle share "
+                  f"{1 - prof[1] / prof[0]:.4f}, {prof[2]} kernel launches")
+        print(f"    decode against the teacher-forced forward over "
+              f"{plen + LM_DECODE} tokens: f32 {diff:.4g} (bound {lim:.4g}); "
+              f"bf16 {bf16_diff:.4g} (the same bound {bf16_lim:.4g}, not "
+              f"held)")
+        del master, dec32, prompt, fed
+
+    if on_card:
+        # the card against the CPU at full width, f32, the same weights
+        for arch in LM_PROMPTS:
+            cfg = CONFIGS[arch]
+            layers = (cfg.shared_attn_period + 1 if cfg.family == "hybrid"
+                      else 2)
+            cfg = dataclasses.replace(cfg, num_layers=layers,
+                                      dtype="float32")
+            gen = torch.Generator(device=device).manual_seed(seed + 1)
+            with torch.inference_mode():
+                p_card = LM.init_params(cfg, gen, device=device)
+                p_cpu = _tree_to(p_card, "cpu")
+                toks = torch.randint(0, cfg.vocab_size, (2, LM_CHECK_TOKENS),
+                                     generator=gen, device=device,
+                                     dtype=torch.int32)
+                on, _, _ = LM.forward(cfg, p_card, toks)
+                ref, _, _ = LM.forward(cfg, p_cpu, toks.cpu())
+            diff, lim = bound(vocab(cfg, ref), vocab(cfg, on), f32=True)
+            check(diff <= lim, f"{arch}: the card's f32 forward differs "
+                  f"from the CPU's by {diff} (bound {lim})")
+            print(f"  {arch} at {layers} layers, f32, 2 x {LM_CHECK_TOKENS} "
+                  f"tokens: card against CPU {diff:.4g} (bound {lim:.4g})")
+            del p_card, p_cpu, on, ref
+
+    # every smoke architecture: prefill + decode against its forward
+    for arch, cfg in SMOKE_CONFIGS.items():
+        gen = torch.Generator(device=device).manual_seed(seed + 2)
+        b, s, mx, pre = 2, 16, 24, 12
+        with torch.inference_mode():
+            params = LM.init_params(cfg, gen, device=device)
+            tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                   device=device, dtype=torch.int32)
+            kw = {}
+            if cfg.family == "vlm":
+                kw["patch_embeds"] = torch.randn(
+                    (b, cfg.patch_tokens, cfg.d_model), generator=gen,
+                    device=device)
+            if cfg.family == "audio":
+                kw["frames"] = torch.randn(
+                    (b, cfg.num_mem_tokens, cfg.d_model), generator=gen,
+                    device=device)
+            full, _, _ = LM.forward(cfg, params, tokens, **kw)
+            lp, cache = LM.prefill(cfg, params, tokens[:, :pre], mx,
+                                   cache_dtype=torch.float32, **kw)
+            outs = [lp]
+            for t in range(pre, s):
+                lg, cache = LM.decode_step(cfg, params, cache,
+                                           tokens[:, t:t + 1])
+                outs.append(lg)
+        diff, lim = bound(full, torch.cat(outs, dim=1), f32=False)
+        check(diff <= lim, f"{arch} (smoke): decode differs from the "
+              f"forward by {diff} (bound {lim})")
+        print(f"  {arch} smoke ({cfg.family}): decode against forward "
+              f"{diff:.4g} (bound {lim:.4g})")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif torch.is_tensor(tree):
+        yield tree
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 def main() -> int:
@@ -2675,6 +2930,10 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
             store.cleanup()
+
+    with phase("20 lm serve"):
+        lm_serve(device, on_card, card, args.seed)
+        take("20 lm serve")
 
     total = {name: sum(c[name] for c in by_phase.values())
              for name in KERNELS}

@@ -1,0 +1,323 @@
+"""State-space / linear-recurrence trunks (port of ``repro.models.ssm``):
+Mamba2 (SSD) and RWKV6 (Finch).
+
+Both run in *chunked* form — intra-chunk work is matmuls, the
+inter-chunk carry a short loop over chunks — plus O(1)-state recurrent
+``*_decode_step`` functions used by serving.
+
+Numerics notes (model definition, applied consistently in both paths):
+  * Mamba2 per-head decay alpha_t = exp(A * dt_t), A = -exp(A_log) < 0;
+    pairwise intra-chunk exponents are <= 0, and future pairs are masked
+    in the exponent (not the product), so the factored form is safe in
+    f32.
+  * RWKV6 per-channel log-decay is clamped to >= -4 so the factored
+    chunk form (exp(+cumsum) up to chunk length 16·4 = 64 < log(f32max))
+    cannot overflow.
+  * Both scans and their states are f32 whatever the compute dtype.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import shard
+from repro_torch.models.layers import rms_norm
+
+RWKV_CHUNK = 16
+RWKV_LOGW_MIN = -4.0
+
+
+def _scan_chunks(body, carry, xs, num_chunks: int):
+    """``lax.scan`` over the leading (chunk) axis of each tensor in
+    ``xs``: (final carry, the stacked outputs). JAX's sqrt-checkpointing
+    of long scans is a training matter and comes with training."""
+    ys = []
+    for i in range(num_chunks):
+        carry, y = body(carry, tuple(t[i] for t in xs))
+        ys.append(y)
+    return carry, torch.stack(ys)
+
+
+# =====================================================================
+# Mamba2 (chunked SSD)
+# =====================================================================
+
+def _causal_conv(x: torch.Tensor, kernel: torch.Tensor,
+                 state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv. x [B, S, C], kernel [K, C],
+    state [B, K-1, C] (history) -> (y [B, S, C], new_state). The taps
+    add in f32, rounded once, as XLA fuses them."""
+    k = kernel.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1]].float() * kernel[i].float()
+            for i in range(k))
+    return y.to(x.dtype), xp[:, -(k - 1):]
+
+
+def mamba_mix(params: Dict, x: torch.Tensor, cfg,
+              state: Optional[Dict] = None
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Mamba2 mixer: in_proj -> conv -> SSD scan -> gated norm -> out_proj.
+
+    x [B, S, D]. ``state`` (decode): {"conv": [B, K-1, C], "ssm":
+    [B, H, P, N]} — pass None for training (zero initial state).
+    """
+    b, s, _ = x.shape
+    di, n, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    h = cfg.ssm_heads
+    xn = rms_norm(x, params["ln"], cfg.norm_eps)
+    proj = torch.einsum("bsd,de->bse", xn, params["in_proj"])
+    proj = shard(proj, "batch", None, "inner")
+    z, xbc, dt_raw = torch.tensor_split(proj, [di, 2 * di + 2 * n], dim=-1)
+
+    conv_state = state["conv"] if state is not None else None
+    xbc, new_conv = _causal_conv(F.silu(xbc), params["conv_w"], conv_state)
+    xs, bm, cm = torch.tensor_split(xbc, [di, di + n], dim=-1)
+    xs = xs.reshape(b, s, h, p)
+
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])   # [B, S, H]
+    log_a = -torch.exp(params["a_log"].float()) * dt
+
+    ssm_state = (state["ssm"] if state is not None
+                 else torch.zeros((b, h, p, n), dtype=torch.float32,
+                                  device=x.device))
+    y, new_ssm = _ssd_chunked(xs, dt, log_a, bm.float(), cm.float(),
+                              ssm_state, cfg.ssm_chunk)
+    y = y + params["d_skip"][None, None, :, None] * xs.float()
+    y = y.reshape(b, s, di)
+    # the gate in f32, rounded once, as XLA fuses it
+    y = (y.to(x.dtype).float() * F.silu(z.float())).to(x.dtype)
+    y = rms_norm(y, params["gate_ln"], cfg.norm_eps)
+    out = torch.einsum("bse,ed->bsd", y, params["out_proj"])
+    out = shard(out, "batch", None, "embed")
+    new_state = ({"conv": new_conv.to(state["conv"].dtype),
+                  "ssm": new_ssm} if state is not None else None)
+    return out, new_state
+
+
+def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, log_a: torch.Tensor,
+                 bm: torch.Tensor, cm: torch.Tensor, s0: torch.Tensor,
+                 chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan.
+
+    x [B, S, H, P]; dt/log_a [B, S, H]; bm/cm [B, S, N]; s0 [B, H, P, N].
+    y_t = C_t^T S_t,  S_t = alpha_t S_{t-1} + dt_t B_t (x_t)^T.
+    Returns (y [B, S, H, P] f32, final state).
+    """
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    q = min(chunk, s)
+    assert s % q == 0, (s, q)
+    nc = s // q
+
+    def r(t, width):                     # [B, S, ...] -> [Nc, B, Q, ...]
+        return t.reshape(b, nc, q, *width).movedim(1, 0)
+
+    xc, dtc, lac = r(x, (h, p)), r(dt, (h,)), r(log_a, (h,))
+    bc, cc = r(bm, (n,)), r(cm, (n,))
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                 device=x.device))[None, :, :, None]
+
+    def body(st, inp):                               # st [B, H, P, N]
+        xq, dq, laq, bq, cq = inp
+        lcum = torch.cumsum(laq, dim=1)              # [B, Q, H] inclusive
+        # intra: M[t, s'] = (C_t.B_s') exp(Lt - Ls') dt_s'  (s' <= t);
+        # the exponent is masked, not the product (exp of a future pair's
+        # difference overflows, and inf * 0 is NaN)
+        cb = torch.einsum("bqn,bsn->bqs", cq, bq)
+        diff = lcum[:, :, None, :] - lcum[:, None, :, :]
+        decay = torch.exp(diff.masked_fill(~mask, -torch.inf))
+        m = cb[..., None] * decay * dq[:, None, :, :]
+        y_intra = torch.einsum("bqsh,bshp->bqhp", m, xq.float())
+        # inter: y += exp(Lt) C_t @ S_prev
+        y_inter = torch.einsum("bqn,bhpn,bqh->bqhp", cq, st, torch.exp(lcum))
+        # state: S' = exp(L_Q) S + sum_s exp(L_Q - L_s) dt_s B_s x_s^T
+        tail = torch.exp(lcum[:, -1:, :] - lcum) * dq     # [B, Q, H]
+        s_new = (torch.exp(lcum[:, -1])[:, :, None, None] * st
+                 + torch.einsum("bsn,bshp,bsh->bhpn", bq, xq.float(), tail))
+        return s_new, y_intra + y_inter
+
+    s_fin, ys = _scan_chunks(body, s0, (xc, dtc, lac, bc, cc), nc)
+    y = ys.movedim(0, 1).reshape(b, s, h, p)
+    return y, s_fin
+
+
+def mamba_decode_step(params: Dict, x: torch.Tensor, cfg,
+                      state: Dict) -> Tuple[torch.Tensor, Dict]:
+    """One-token recurrent step (S=1); exact recurrence, O(1) state."""
+    return mamba_mix(params, x, cfg, state=state)
+
+
+def init_mamba_state(cfg, batch: int, dtype=torch.float32,
+                     device="cuda") -> Dict:
+    c = cfg.d_inner + 2 * cfg.ssm_state      # conv acts on (x, B, C) only
+    return {"conv": torch.zeros((batch, cfg.ssm_conv - 1, c), dtype=dtype,
+                                device=device),
+            "ssm": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                cfg.ssm_state), dtype=torch.float32,
+                               device=device)}
+
+
+# =====================================================================
+# RWKV6 (Finch)
+# =====================================================================
+
+def _token_shift(xn: torch.Tensor, state: Optional[Dict]) -> torch.Tensor:
+    """The previous token's input: the carried ``shift`` for the first
+    position (zeros without a state)."""
+    if state is not None:
+        return torch.cat([state["shift"][:, None].to(xn.dtype), xn[:, :-1]],
+                         dim=1)
+    return F.pad(xn, (0, 0, 1, 0))[:, :-1]
+
+
+def rwkv_time_mix(params: Dict, x: torch.Tensor, cfg,
+                  state: Optional[Dict] = None
+                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """RWKV6 time-mix block (WKV attention substitute).
+
+    x [B, S, D]. ``state`` (decode): {"shift": [B, D] last input,
+    "wkv": [B, H, K, V]} or None (training, zeros)."""
+    b, s, d = x.shape
+    h, hk = cfg.rwkv_heads, cfg.rwkv_head_dim
+    xn = rms_norm(x, params["ln"], cfg.norm_eps)
+    prev = _token_shift(xn, state)
+
+    # data-dependent lerp for r, k, v, w, g
+    xx = prev - xn
+    xxx = xn + xx * params["mu_base"]
+    lora = torch.einsum("bsfl,fld->bsfd",
+                        torch.tanh(torch.einsum("bsd,dfl->bsfl", xxx,
+                                                params["mix_wa"])),
+                        params["mix_wb"])              # [B, S, 5, D]
+    mixed = xn[:, :, None] + xx[:, :, None] * (params["mu"] + lora)
+    xr, xk, xv, xw, xg = [mixed[:, :, i] for i in range(5)]
+
+    r = torch.einsum("bsd,de->bse", xr, params["wr"]).reshape(b, s, h, hk)
+    k = torch.einsum("bsd,de->bse", xk, params["wk"]).reshape(b, s, h, hk)
+    v = torch.einsum("bsd,de->bse", xv, params["wv"]).reshape(b, s, h, hk)
+    g = torch.einsum("bsd,de->bse", xg, params["wg"])
+    # per-channel log-decay, clamped (see module docstring)
+    ww = (params["w0"]
+          + torch.einsum("bsl,ld->bsd",
+                         torch.tanh(torch.einsum("bsd,dl->bsl", xw,
+                                                 params["decay_wa"])),
+                         params["decay_wb"]))
+    logw = torch.clamp(-torch.exp(ww.float()), RWKV_LOGW_MIN, -1e-5)
+    logw = logw.reshape(b, s, h, hk)
+    u = params["u"].reshape(h, hk)
+
+    wkv0 = (state["wkv"] if state is not None
+            else torch.zeros((b, h, hk, hk), dtype=torch.float32,
+                             device=x.device))
+    y, wkv_fin = _wkv_chunked(r.float(), k.float(), v.float(), logw, u, wkv0)
+
+    # per-head group norm (biased variance, as jnp.var), gate, out-proj
+    y = y.reshape(b, s, h, hk)
+    mean = y.mean(-1, keepdim=True)
+    var = y.var(-1, keepdim=True, correction=0)
+    y = (y - mean) * torch.rsqrt(var + 64e-5)
+    y = (y * (1.0 + params["gn_g"].reshape(h, hk))
+         + params["gn_b"].reshape(h, hk))
+    y = y.reshape(b, s, d).to(x.dtype) * F.silu(g)
+    out = torch.einsum("bsd,de->bse", y, params["wo"])
+    out = shard(out, "batch", None, "embed")
+    new_state = ({"shift": xn[:, -1].to(state["shift"].dtype),
+                  "wkv": wkv_fin} if state is not None else None)
+    return out, new_state
+
+
+def _wkv_chunked(r, k, v, logw, u, s0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked WKV6: y_t = r_t.(diag(u) k_t v_t^T + S_{t-1});
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T (decays act on the K index).
+
+    r/k/v [B, S, H, K]; logw same; u [H, K]; s0 [B, H, K, K(V)].
+    Returns (y [B, S, H, K], final state). f32 throughout.
+    """
+    b, s, h, hk = r.shape
+    q = min(RWKV_CHUNK, s)
+    assert s % q == 0, (s, q)
+    nc = s // q
+
+    def rs(t):
+        return t.reshape(b, nc, q, h, hk).movedim(1, 0)
+
+    rc, kc, vc, wc = rs(r), rs(k), rs(v), rs(logw)
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=r.device),
+                      -1)
+    uf = u.float()
+
+    def body(st, inp):                                # st [B, H, K, V]
+        rq, kq, vq, lw = inp                          # [B, Q, H, K]
+        wcum = torch.cumsum(lw, dim=1)                # inclusive
+        wex = wcum - lw                               # exclusive
+        # inter-chunk: y_t += (r_t * exp(Wex_t)) @ S_prev
+        rr = rq * torch.exp(wex)
+        y_inter = torch.einsum("bqhk,bhkv->bqhv", rr, st)
+        # intra: A[t,s'] = sum_k r_tk k_s'k exp(Wex_t - Wc_s'), s' < t
+        kk = kq * torch.exp(-wcum)
+        a = torch.einsum("bqhk,bshk->bhqs", rr, kk)
+        a = a.masked_fill(~mask[None, None], 0.0)
+        # bonus diagonal: r_t.(u * k_t) v_t
+        diag = torch.einsum("bqhk,bqhk->bqh", rq, kq * uf[None, None])
+        y = (y_inter + torch.einsum("bhqs,bshv->bqhv", a, vq)
+             + diag[..., None] * vq)
+        # state update: S' = exp(Wc_Q) S + sum_s exp(Wc_Q - Wc_s) k_s v_s^T
+        tail = torch.exp(wcum[:, -1:] - wcum)         # [B, Q, H, K]
+        s_new = (torch.exp(wcum[:, -1])[..., None] * st
+                 + torch.einsum("bshk,bshv->bhkv", kq * tail, vq))
+        return s_new, y
+
+    s_fin, ys = _scan_chunks(body, s0, (rc, kc, vc, wc), nc)
+    y = ys.movedim(0, 1).reshape(b, s, h, hk)
+    return y, s_fin
+
+
+def rwkv_channel_mix(params: Dict, x: torch.Tensor, cfg,
+                     state: Optional[Dict] = None
+                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """RWKV6 channel-mix (FFN substitute): squared-ReLU keyed FFN with
+    receptance gate and token shift."""
+    xn = rms_norm(x, params["ln"], cfg.norm_eps)
+    xx = _token_shift(xn, state) - xn
+    xk = xn + xx * params["mu_k"]
+    xr = xn + xx * params["mu_r"]
+    kk = torch.einsum("bsd,df->bsf", xk, params["wk"])
+    kk = shard(torch.square(torch.relu(kk)), "batch", None, "ff")
+    vv = torch.einsum("bsf,fd->bsd", kk, params["wv"])
+    rr = torch.sigmoid(torch.einsum("bsd,de->bse", xr, params["wr"]))
+    out = shard(rr * vv, "batch", None, "embed")
+    new_state = ({"shift": xn[:, -1].to(state["shift"].dtype)}
+                 if state is not None else None)
+    return out, new_state
+
+
+def rwkv_layer(params: Dict, x: torch.Tensor, cfg,
+               state: Optional[Dict] = None
+               ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    tm_state = state["tm"] if state is not None else None
+    cm_state = state["cm"] if state is not None else None
+    a, tm_new = rwkv_time_mix(params["tm"], x, cfg, tm_state)
+    x = x + a
+    m, cm_new = rwkv_channel_mix(params["cm"], x, cfg, cm_state)
+    x = x + m
+    new = ({"tm": tm_new, "cm": cm_new} if state is not None else None)
+    return x, new
+
+
+def init_rwkv_state(cfg, batch: int, dtype=torch.float32,
+                    device="cuda") -> Dict:
+    d, h, hk = cfg.d_model, cfg.rwkv_heads, cfg.rwkv_head_dim
+    return {"tm": {"shift": torch.zeros((batch, d), dtype=dtype,
+                                        device=device),
+                   "wkv": torch.zeros((batch, h, hk, hk),
+                                      dtype=torch.float32, device=device)},
+            "cm": {"shift": torch.zeros((batch, d), dtype=dtype,
+                                        device=device)}}
