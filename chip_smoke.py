@@ -14,7 +14,8 @@ with its compaction and serving swaps, the observability plane (spans,
 metrics, the Chrome trace, a ``CostModel`` fitted to the card), the
 mesh router over four segments on eight ranks of the card and the
 multi-rank search step on a one-rank NCCL group — on a
-1,000,000 x 128 segment built from seeded clustered vectors, and checks
+1,000,000 x 128 segment built from seeded clustered vectors, then the
+language models' serving and training paths at full size, and checks
 them:
 
   1. card: name and power limit (``nvidia-smi``);
@@ -31,7 +32,7 @@ them:
      launches and operations are printed by the build function they ran
      in (the kNN, the connectivity fix's host search, the beam search's
      entry distance, the navigation graph);
-  4. vamana: ``build_vamana`` at 50,000 x 128 with the same knobs: time,
+  4. vamana: ``build_vamana`` at 25,000 x 128 with the same knobs: time,
      average degree, OR(G) after BNF, reachability;
   5. kernels: each CUDA kernel against its plain PyTorch version — the
      round kernels on the inputs of a real first round of a 1,024-query
@@ -131,7 +132,7 @@ them:
      ``l2_tile`` in row chunks) on phase 3's 1M graph — seconds,
      ``l2_tile``'s launches (one a chunk a step), OR(G) beside BNP's and
      BNF's, the layout a bijection; HNSW (``graph.build_hnsw``) on the
-     first 20,000 vectors — level sizes (never increasing), each layer's
+     first 10,000 vectors — level sizes (never increasing), each layer's
      degrees and reachability, ``build_segment(algo="hnsw",
      shuffle="bnf")`` (its disk graph HNSW's base layer) and 256 host
      queries (recall@10, block reads), ``navgraph.from_hnsw_layers``
@@ -226,8 +227,10 @@ them:
      then ``device_anns`` on the stack's own views against the direct
      one (the segment's memory apart from the step's work);
  20. lm serve: ``launch.serve``'s prefill and decode step on
-     ``gemma3-1b`` (8 x 1,024 tokens: the blockwise attention, 5:1
-     sliding and global layers), ``zamba2-1.2b`` and ``rwkv6-1.6b`` (8 x
+     ``gemma3-1b`` (8 x 2,048 tokens on a cache of 2,112: the blockwise
+     attention, 2,048 x 2,112 scores a head past 2^21, each of the two
+     prefills' 26 blockwise calls counted; 5:1 sliding and global layers),
+     ``zamba2-1.2b`` and ``rwkv6-1.6b`` (8 x
      512 each) at their full published size, depth included, with seeded
      weights (``lm.init_params`` on the card, cast to bf16 once): 32
      greedy decode steps on a bf16 cache, logits finite, tokens under the
@@ -245,9 +248,40 @@ them:
      tokens (1e-4 x scale + 1e-5); every smoke architecture's decode
      against its forward on the card (the bound above). No kernel of
      ``kernels/csrc`` runs here (``models/*`` has no ``pallas_call``):
-     its launches row is empty;
- 21. summary: the launches of every kernel by phase (the build, Vamana,
-     each window of phases 6-20; phase 5's comparisons and the CPU
+     its launches row is empty. The teacher-forced forward unembeds only
+     the compared rows, and one set of logits is alive at a time;
+ 21. lm train: ``launch.train.make_train_step`` (``optim.adamw``, the
+     gradient accumulation, remat) on ``data.pipeline.TokenPipeline``
+     batches at full size, depth included, seeded weights: ``gemma3-1b``
+     8 x 2,048 tokens (2 microbatches; the blockwise attention's forward
+     and backward, ``_chunked_ce`` in 32 checkpointed chunks of the
+     262,144 vocabulary), ``zamba2-1.2b`` and ``rwkv6-1.6b`` 8 x 1,024 (4
+     microbatches; 8 SSD chunks a layer; 64 WKV chunks, in groups of 8
+     under checkpoints inside each layer's): a warm-up step, 4 timed and
+     one profiled (wall, device
+     busy, idle share, launches); loss and ``grad_norm`` finite at every
+     step, every parameter finite, some changed, the optimizer's step
+     equal to the steps taken; median ms, tokens/s, the model-FLOP rate
+     6·N·tokens/s against the dense bf16 peak, peak memory. Then each
+     model cut to 2 layers (zamba2 7) at full width in f32, one step on 2
+     x 64 tokens on the card against the same weights and batch on the
+     CPU: loss within 1e-5 and ``grad_norm`` within 1e-4 relative, every
+     gradient leaf (``grads_of``) within 1e-3 of its largest |g|, every
+     updated parameter within 2 x lr + 2e-6 (Adam's first step moves an
+     element by about sign(g) x lr). The restart: gemma3-1b at full width
+     and 2 layers, 8 x 128, under ``torch.use_deterministic_algorithms``
+     (``CUBLAS_WORKSPACE_CONFIG`` set before torch starts): 6 steps
+     straight against 3, ``ft.CheckpointManager.save`` to a temporary
+     directory, a restore into fresh trees, ``set_state`` and 3 more; the
+     restored tensors equal the saved ones and the resumed run the
+     straight one, bit for bit. Last, ``python -m
+     repro_torch.launch.train --arch gemma3-1b --smoke --steps 60 --batch
+     8 --seq 128`` in a subprocess: exit 0, the loss at step 59 at least
+     0.1 under step 0's, checkpoints 20, 40, 60 kept; then ``--resume
+     --steps 80`` prints "resumed from step 60". No kernel of
+     ``kernels/csrc`` runs here either;
+ 22. summary: the launches of every kernel by phase (the build, Vamana,
+     each window of phases 6-21; phase 5's comparisons and the CPU
      comparisons and timings of phases 13, 15 and 16 are not counted)
      and in total; one JSON line of the kernels with the totals, the card
      line, and last ``{"ok": true, "device": {...}}``.
@@ -262,7 +296,9 @@ beside the script. ``--device cpu --n 20000`` rehearses the whole script
 on the CPU with the plain versions (for rehearsal only; its Vamana phase
 then builds n/4 vectors, its HNSW n/2, and phase 20 serves the smoke
 configurations of the three models, 2 x 128 tokens, without the
-card-against-CPU check).
+card-against-CPU check; phase 21 trains them, with the full
+configurations' remat and accumulation, on 4 x 128 tokens, and holds the
+CPU against itself).
 """
 from __future__ import annotations
 
@@ -278,14 +314,19 @@ import sys
 import tempfile
 import time
 
-import numpy as np
-import torch
-import torch.distributed as dist
+# cuBLAS fixes its workspace layout when torch first creates a handle;
+# phase 21's restart runs under torch.use_deterministic_algorithms, which
+# needs a fixed one
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 DIM, BATCH, BATCHES = 128, 1024, 8   # SIFT1M width; 8 batches of 1,024
-VAMANA_N = 50_000                    # the Vamana phase's size on the card
+VAMANA_N = 25_000                    # the Vamana phase's size on the card
 KNN_ROWS = 4096                      # sampled vertices of the kNN check
 KNN_CHUNK = 2048                     # distances.knn_graph's row chunk
 L2_ATOL, L2_RTOL = 1e-2, 1e-5        # f32 order, squared norms ~1e4
@@ -316,7 +357,7 @@ STREAM = 4096                        # phase 13's single requests
 FEED_QUERIES = 256                   # of each batch, served by the feed
 WIDE_Q, WIDE_F = 128, 16   # tier0_fetch_rank's wide shape: F·ε = 96 slots
 KMEANS_ITERS = 8                     # phase 14: the k-means packer's steps
-HNSW_N = 20_000                      # phase 14: HNSW's size on the card
+HNSW_N = 10_000                      # phase 14: HNSW's size on the card
 BNS_N, BNF_ITERS = 1200, 8           # phase 14: App. F's BNS size and β
 BASE_CHECK, BASE_RANGE = 64, 8       # phase 15: CPU check; range queries
 DELTA_INSERTS, DELTA_DEAD_INSERTS = 256, 16   # phase 16's delta
@@ -329,11 +370,18 @@ CALIB_REPEATS = 2                    # batches of each size in the fit
 MESH_SEGMENTS, MESH_RANKS = 4, 8     # phase 18: JAX's mesh_bench layout
 MESH_UNIFORM, MESH_SKEWED = 2, 6     # phase 18: phase 6's batches; skewed
 STEP_PAIRS = 4                       # phase 19: step/direct timing pairs
-LM_PROMPTS = {"gemma3-1b": 1024,     # phase 20: the served models at full
+LM_PROMPTS = {"gemma3-1b": 2048,     # phase 20: the served models at full
               "zamba2-1.2b": 512,    # size and their prompt lengths (a
               "rwkv6-1.6b": 512}     # multiple of Mamba2's 128, RWKV's 16)
 LM_BATCH, LM_DECODE = 8, 32          # phase 20: prompts; decode steps
-LM_CHECK_TOKENS = 64                 # phase 20: card against CPU, f32
+LM_CHECK_TOKENS = 64                 # phases 20-21: card against CPU, f32
+LM_TRAIN = {"gemma3-1b": 2048,       # phase 21: the trained models at full
+            "zamba2-1.2b": 1024,     # size and their sequence lengths, 8
+            "rwkv6-1.6b": 1024}      # sequences a step
+LM_TRAIN_STEPS = 4                   # phase 21: timed steps after a warm-up
+RESTART_STEPS = 3                    # phase 21: steps before and after
+ENTRY_STEPS, ENTRY_RESUME = 60, 80   # phase 21: launch.train run, resume
+BF16_OPS_PER_S = 989e12              # H100 SXM dense bf16 (data sheet)
 
 
 class SmokeFailure(Exception):
@@ -489,6 +537,7 @@ def lm_serve(device, on_card: bool, card: str, seed: int) -> None:
     at full size on the card; see the module docstring."""
     from repro_torch.configs import CONFIGS, SMOKE_CONFIGS
     from repro_torch.launch.serve import make_prefill, make_serve_step
+    from repro_torch.models import layers as LY
     from repro_torch.models import lm as LM
 
     def bound(ref, got, f32):
@@ -518,6 +567,7 @@ def lm_serve(device, on_card: bool, card: str, seed: int) -> None:
         serve = make_serve_step(cfg)
         pre_ms = []
         for _ in range(2 if feed is None else 1):
+            logits = cache = None          # one set of logits at a time
             sync(device)
             t0 = time.perf_counter()
             logits, cache = prefill(params, {"tokens": prompt})
@@ -568,14 +618,16 @@ def lm_serve(device, on_card: bool, card: str, seed: int) -> None:
     def against_forward(cfg, params, prompt, fed, dec):
         """The decode's logits against the teacher-forced ``forward`` over
         the prompt and the fed tokens (Mamba2's scan wants a chunk that
-        divides the length: the same scan, chunked finer)."""
+        divides the length: the same scan, chunked finer). ``forward`` is
+        ``_unembed`` of ``_forward_hidden``; only the compared rows are
+        unembedded (gemma3's f32 logits of every row would take 17 GB)."""
         seq = torch.cat([prompt, fed], dim=1)
         if cfg.family == "hybrid":
             cfg = dataclasses.replace(
                 cfg, ssm_chunk=math.gcd(cfg.ssm_chunk, seq.shape[1]))
-        full, _, _ = LM.forward(cfg, params, seq)
-        return bound(vocab(cfg, full[:, prompt.shape[1] - 1:]), dec,
-                     f32=False)
+        x, _, _ = LM._forward_hidden(cfg, params, seq)
+        full = LM._unembed(cfg, params, x[:, prompt.shape[1] - 1:])
+        return bound(vocab(cfg, full), dec, f32=False)
 
     batch = LM_BATCH if on_card else 2
     for arch, plen in LM_PROMPTS.items():
@@ -596,8 +648,31 @@ def lm_serve(device, on_card: bool, card: str, seed: int) -> None:
             prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
                                    generator=gen, device=device,
                                    dtype=torch.int32)
-            pre_ms, dec_ms, dec, fed, tok, cache_bytes, cache = decode(
-                cfg, params, prompt, max_len, torch.bfloat16)
+            # gqa_attention goes blockwise past 2^21 scores a head (and 64
+            # queries): count the prefills' blockwise calls
+            blockwise = [0]
+            plain_blockwise = LY._blockwise_attention
+
+            def counted(*a, **kw):
+                blockwise[0] += 1
+                return plain_blockwise(*a, **kw)
+            LY._blockwise_attention = counted
+            try:
+                pre_ms, dec_ms, dec, fed, tok, cache_bytes, cache = decode(
+                    cfg, params, prompt, max_len, torch.bfloat16)
+            finally:
+                LY._blockwise_attention = plain_blockwise
+            wide = plen * max_len > LY._BLOCKWISE_THRESHOLD and plen >= 64
+            attn_layers = (cfg.num_layers // cfg.shared_attn_period
+                           if cfg.family == "hybrid"
+                           else 0 if cfg.family == "ssm" else cfg.num_layers)
+            check(blockwise[0] == (2 * attn_layers if wide else 0),
+                  f"{arch}: {blockwise[0]} blockwise attention calls in two "
+                  f"prefills of {plen} x {max_len} (expected "
+                  f"{2 * attn_layers if wide else 0})")
+            if on_card and arch == "gemma3-1b":
+                check(wide, f"{arch}: the prefill's {plen} x {max_len} "
+                      f"scores do not pass 2^21: no blockwise attention")
             prof = (profile_step(cfg, params, cache, tok) if on_card
                     else None)
             del cache
@@ -624,6 +699,9 @@ def lm_serve(device, on_card: bool, card: str, seed: int) -> None:
               f"parameters, f32 {nbytes(master)} B, bf16 copy {w_bytes} B, "
               f"init {init_s:.3f} s; bf16 cache {cache_bytes} B for "
               f"{batch} x {max_len}")
+        print(f"    prefill attention: {plen} x {max_len} scores a head, "
+              f"{'blockwise' if wide else 'plain'} ({blockwise[0]} "
+              f"blockwise calls in two prefills)")
         print(f"    prefill {batch} x {plen}: {pre_ms[1]:.3f} ms "
               f"({batch * plen / pre_ms[1] * 1e3:.1f} tokens/s; first call "
               f"{pre_ms[0]:.3f} ms); decode median {np.median(dec_ms):.3f} "
@@ -697,9 +775,279 @@ def lm_serve(device, on_card: bool, card: str, seed: int) -> None:
               f"{diff:.4g} (bound {lim:.4g})")
 
 
+def lm_train(device, on_card: bool, card: str, seed: int) -> None:
+    """Phase 21: the LM training path (``launch.train`` over ``optim``,
+    ``data.pipeline``, ``ft`` and ``models/lm`` with remat) at full size on
+    the card; see the module docstring."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import CONFIGS, SMOKE_CONFIGS
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.launch.train import default_optimizer, make_train_step
+    from repro_torch.models import lm as LM
+    from repro_torch.optim import adamw_init
+
+    def finite(t) -> bool:
+        return bool(torch.isfinite(t).all())
+
+    def train(step_fn, params, opt_state, pipe, cfg, steps, times=None):
+        metrics = []
+        for _ in range(steps):
+            batch = pipe.next_batch(cfg)
+            sync(device)
+            t0 = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            sync(device)
+            if times is not None:
+                times.append((time.perf_counter() - t0) * 1e3)
+            metrics.append(m)
+        return params, opt_state, metrics
+
+    def profile_step(step_fn, params, opt_state, batch):
+        """One step under ``torch.profiler`` (CUDA activity: the kernels and
+        the runtime calls): wall ms, device busy ms, launches, kernels. The
+        events are summed as they come, without building the profiler's
+        per-op tables (a step makes ~10^5-10^6 of them)."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sync(device)
+            t0 = time.perf_counter()
+            out = step_fn(params, opt_state, batch)
+            sync(device)
+            wall = (time.perf_counter() - t0) * 1e3
+        busy_ns, launches, kernels = 0, 0, 0
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == torch.autograd.DeviceType.CUDA:
+                busy_ns += e.duration_ns()
+                kernels += 1
+            elif e.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
+                launches += 1
+        return out, wall, busy_ns / 1e6, launches, kernels
+
+    def full_size(arch):
+        """The trained configuration: full size on the card; the smoke
+        width in the CPU rehearsal, with the full one's remat and
+        accumulation."""
+        if on_card:
+            return CONFIGS[arch]
+        return dataclasses.replace(SMOKE_CONFIGS[arch], remat=True,
+                                   grad_accum=CONFIGS[arch].grad_accum)
+
+    batch = LM_BATCH if on_card else 4
+    for arch, seq in LM_TRAIN.items():
+        t_model = time.perf_counter()
+        cfg = full_size(arch)
+        if not on_card:
+            seq = 128
+        check(cfg.remat and cfg.param_dtype == "float32",
+              f"{arch}: trained without remat or f32 master weights")
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = LM.init_params(cfg, gen, device=device)
+        n_params = sum(t.numel() for t in _leaves(params))
+        head = [t.flatten()[:4096].clone() for t in _leaves(params)]
+        opt_state = adamw_init(params)
+        step_fn = make_train_step(cfg, default_optimizer())
+        pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=seed)
+        times = []
+        params, opt_state, metrics = train(step_fn, params, opt_state, pipe,
+                                           cfg, 1 + LM_TRAIN_STEPS, times)
+        prof = None
+        if on_card:
+            (params, opt_state, m), *prof = profile_step(
+                step_fn, params, opt_state, pipe.next_batch(cfg))
+            metrics.append(m)
+            peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        else:
+            peak = float("nan")
+        steps = len(metrics)
+        losses = [float(m["loss"]) for m in metrics]
+        gnorms = [float(m["grad_norm"]) for m in metrics]
+        check(all(math.isfinite(v) for v in losses + gnorms),
+              f"{arch}: a loss or grad_norm not finite: {losses} {gnorms}")
+        check(all(finite(t) for t in _leaves(params)),
+              f"{arch}: a parameter not finite after training")
+        check(any(not torch.equal(h, t.flatten()[:4096])
+                  for h, t in zip(head, _leaves(params))),
+              f"{arch}: no parameter changed")
+        check(int(opt_state["step"]) == steps,
+              f"{arch}: optimizer step {int(opt_state['step'])}, {steps} "
+              f"steps taken")
+        med = float(np.median(times[1:]))
+        tok_s = batch * seq / med * 1e3
+        mfu = 6 * n_params * tok_s / BF16_OPS_PER_S
+        print(f"  {arch} ({cfg.family}, {cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab_size}): {n_params} "
+              f"parameters, {batch} x {seq} tokens a step in "
+              f"{cfg.grad_accum} microbatches, remat {cfg.remat}")
+        print(f"    step median {med:.3f} ms over {LM_TRAIN_STEPS} (warm-up "
+              f"{times[0]:.3f} ms; {[round(t, 3) for t in times[1:]]}), "
+              f"{tok_s:.1f} tokens/s, model FLOP rate 6·N·tokens/s "
+              f"{6 * n_params * tok_s / 1e12:.3f} TFLOP/s = {mfu:.4f} of "
+              f"the dense bf16 peak; peak memory {peak:.3f} GiB; {card}")
+        print(f"    loss {[round(v, 4) for v in losses]}, grad_norm "
+              f"{[round(v, 4) for v in gnorms]}, optimizer step {steps}")
+        if prof is not None:
+            wall, busy, launches, kernels = prof
+            print(f"    one step profiled: wall {wall:.3f} ms, device busy "
+                  f"{busy:.3f} ms, idle share {1 - busy / wall:.4f}, "
+                  f"{launches} kernel launches, {kernels} device "
+                  f"activities; {card}")
+        print(f"    {time.perf_counter() - t_model:.3f} s for the model")
+        del params, opt_state, head, metrics, step_fn
+
+    opt = default_optimizer()
+    # the card against the CPU: one f32 step at full width, cut depth (the
+    # CPU rehearsal holds the CPU against itself)
+    for arch in LM_TRAIN:
+        t_check = time.perf_counter()
+        cfg = full_size(arch)
+        layers = (cfg.shared_attn_period + 1 if cfg.family == "hybrid"
+                  else 2)
+        cfg = dataclasses.replace(cfg, num_layers=layers,
+                                  dtype="float32", grad_accum=1)
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        p_card = LM.init_params(cfg, gen, device=device)
+        p_cpu = _tree_to(p_card, "cpu")
+        b = TokenPipeline(cfg.vocab_size, 2, LM_CHECK_TOKENS,
+                          seed=seed).next_batch(cfg)
+        step_fn = make_train_step(cfg, opt)
+        bt = {k: torch.as_tensor(v) for k, v in b.items()}
+        _, _, g_card = step_fn.grads_of(p_card, _tree_to(bt, device))
+        _, _, g_cpu = step_fn.grads_of(p_cpu, bt)
+        g_rel = max(float((a.cpu() - r).abs().max())
+                    / max(float(r.abs().max()), 1e-30)
+                    for a, r in zip(_leaves(g_card), _leaves(g_cpu)))
+        del g_card, g_cpu
+        n_card, _, m_card = step_fn(p_card, adamw_init(p_card), b)
+        n_cpu, _, m_cpu = step_fn(p_cpu, adamw_init(p_cpu), b)
+        lr = float(m_cpu["lr"])
+        d_p = [(a.cpu() - r).abs() for a, r in zip(_leaves(n_card),
+                                                   _leaves(n_cpu))]
+        p_max = max(float(d.max()) for d in d_p)
+        flips = (sum(int((d > lr / 2).sum()) for d in d_p)
+                 / sum(d.numel() for d in d_p))
+        rel = {k: abs(float(m_card[k]) - float(m_cpu[k]))
+               / abs(float(m_cpu[k])) for k in ("loss", "grad_norm")}
+        check(rel["loss"] <= 1e-5 and rel["grad_norm"] <= 1e-4,
+              f"{arch}: the card's loss / grad_norm leave the CPU's: "
+              f"{rel}")
+        check(g_rel <= 1e-3, f"{arch}: a gradient leaf leaves the "
+              f"CPU's by {g_rel} of its largest |g| (bound 1e-3)")
+        check(p_max <= 2 * lr + 2e-6, f"{arch}: an updated parameter "
+              f"leaves the CPU's by {p_max} (bound 2 x lr + 2e-6 = "
+              f"{2 * lr + 2e-6})")
+        print(f"  {arch} at {layers} layers, f32, 2 x {LM_CHECK_TOKENS} "
+              f"tokens, one step, card against CPU: loss rel "
+              f"{rel['loss']:.3g} (bound 1e-5), grad_norm rel "
+              f"{rel['grad_norm']:.3g} (1e-4), gradients {g_rel:.3g} of "
+              f"the leaf's largest |g| (1e-3), parameters {p_max:.4g} "
+              f"(2 x lr + 2e-6 = {2 * lr + 2e-6:.4g}), share past lr/2 "
+              f"{flips:.3g}; {time.perf_counter() - t_check:.3f} s")
+        del p_card, p_cpu, n_card, n_cpu, d_p
+
+    # the restart: 6 steps straight against 3, a checkpoint, a restore
+    # into fresh trees and 3 more, under deterministic algorithms
+    t_restart = time.perf_counter()
+    cfg = full_size("gemma3-1b")
+    if on_card:
+        cfg = dataclasses.replace(cfg, num_layers=2)
+    step_fn = make_train_step(cfg, opt)
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    p0 = LM.init_params(cfg, gen, device=device)
+    o0 = adamw_init(p0)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            def pipe():
+                return TokenPipeline(cfg.vocab_size, batch, 128, seed=seed)
+            pa, oa, _ = train(step_fn, p0, o0, pipe(), cfg,
+                              2 * RESTART_STEPS)
+            pipe_b = pipe()
+            pb, ob, _ = train(step_fn, p0, o0, pipe_b, cfg, RESTART_STEPS)
+            t0 = time.perf_counter()
+            ckpt = CheckpointManager(d, keep=2)
+            ckpt.save(RESTART_STEPS, pb, ob, pipe_b.get_state())
+            save_s = time.perf_counter() - t0
+            fresh = LM.init_params(cfg, torch.Generator(
+                device=device).manual_seed(seed + 3), device=device)
+            t0 = time.perf_counter()
+            pr, orr, pipe_state, step = ckpt.restore(fresh,
+                                                     adamw_init(fresh))
+            load_s = time.perf_counter() - t0
+            check(step == RESTART_STEPS, f"restart: restored step {step}")
+            check(all(a.dtype == r.dtype and a.device == r.device
+                      and torch.equal(a, r) for a, r in zip(
+                          _leaves((pb, ob)), _leaves((pr, orr)))),
+                  "restart: a restored tensor differs from the saved one")
+            pipe_c = pipe()
+            pipe_c.set_state(pipe_state)
+            pc, oc, _ = train(step_fn, pr, orr, pipe_c, cfg, RESTART_STEPS)
+            ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                             for dp, _, fs in os.walk(d) for f in fs)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    same = [torch.equal(a, c) for a, c in zip(_leaves((pa, oa)),
+                                               _leaves((pc, oc)))]
+    check(all(same), f"restart: {same.count(False)} of {len(same)} tensors "
+          f"differ from the straight run's")
+    print(f"  restart, {cfg.name} at {cfg.num_layers} layers, {batch} x "
+          f"128: {2 * RESTART_STEPS} steps straight equal {RESTART_STEPS} + "
+          f"checkpoint + restore + {RESTART_STEPS} bit for bit "
+          f"({len(same)} tensors; deterministic algorithms); checkpoint "
+          f"{ckpt_bytes} B, save {save_s:.3f} s, restore {load_s:.3f} s; "
+          f"{time.perf_counter() - t_restart:.3f} s")
+    del p0, o0, pa, oa, pb, ob, pr, orr, pc, oc, fresh
+
+    # the entry point: python -m repro_torch.launch.train, then --resume
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    with tempfile.TemporaryDirectory() as d:
+        def run(steps, *extra):
+            cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                   "--arch", "gemma3-1b", "--smoke", "--steps", str(steps),
+                   "--batch", "8", "--seq", "128", "--ckpt-dir", d,
+                   "--ckpt-every", "20", "--device", device.type, *extra]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                               timeout=600)
+            check(r.returncode == 0, f"launch.train exited {r.returncode}: "
+                  f"{r.stderr[-2000:]}")
+            return r.stdout, time.perf_counter() - t0
+
+        out, first_s = run(ENTRY_STEPS)
+        loss = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+            r"step\s+(\d+) loss (\S+)", out)}
+        last = ENTRY_STEPS - 1
+        check(0 in loss and last in loss and loss[0] - loss[last] >= 0.1,
+              f"launch.train: the loss fell from {loss.get(0)} to "
+              f"{loss.get(last)} (at least 0.1 wanted)")
+        kept = CheckpointManager(d).steps()
+        check(kept == [20, 40, 60], f"launch.train kept checkpoints {kept}")
+        out2, resume_s = run(ENTRY_RESUME, "--resume")
+        check(f"resumed from step {ENTRY_STEPS}" in out2,
+              f"launch.train --resume: {out2[:500]}")
+        kept2 = CheckpointManager(d).steps()
+        check(kept2 == [40, 60, 80], f"launch.train kept {kept2} after "
+              f"resuming")
+    print(f"  python -m repro_torch.launch.train --arch gemma3-1b --smoke "
+          f"--steps {ENTRY_STEPS} --batch 8 --seq 128: loss {loss[0]:.4f} "
+          f"-> {loss[last]:.4f} at step {last} ({first_s:.3f} s), "
+          f"checkpoints {kept}; --resume --steps {ENTRY_RESUME}: resumed "
+          f"from step {ENTRY_STEPS}, kept {kept2} ({resume_s:.3f} s)")
+
+
 def _leaves(tree):
+    """The tensors of a tree, dict keys sorted (as the port flattens)."""
     if isinstance(tree, dict):
-        for v in tree.values():
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from _leaves(v)
     elif torch.is_tensor(tree):
         yield tree
@@ -2934,6 +3282,10 @@ def main() -> int:
     with phase("20 lm serve"):
         lm_serve(device, on_card, card, args.seed)
         take("20 lm serve")
+
+    with phase("21 lm train"):
+        lm_train(device, on_card, card, args.seed)
+        take("21 lm train")
 
     total = {name: sum(c[name] for c in by_phase.values())
              for name in KERNELS}

@@ -35,6 +35,12 @@ Hopper (each with a plain PyTorch version that runs for CPU tensors):
     production mesh; ``configs`` holds the presets and the
     architectures' shapes.
 
+Beside them, the language models (``models``, every family of
+``configs``; no hand kernel, as JAX's have no Pallas one):
+``launch.serve`` prefills and decodes, ``launch.train`` trains them with
+``optim``'s AdamW on ``data.pipeline``'s token stream, ``ft``'s
+checkpoints and remat where JAX has it.
+
 Entry points take ``device=`` and default to ``"cuda"``; nothing falls
 back to the CPU when there is no card.
 """

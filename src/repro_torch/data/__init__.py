@@ -1,3 +1,3 @@
-# Seeded vector data (port of ``repro.data``); ``TokenPipeline`` comes
-# with the slice that ports ``data/pipeline``.
+# Seeded token and vector data (port of ``repro.data``, numpy copies).
+from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.data.vectors import clustered_vectors, query_set

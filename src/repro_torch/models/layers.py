@@ -16,11 +16,13 @@ the attention logits are an f32 product of q and k upcast before it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import (axis_names, axis_sizes,
                                               current_rules, shard)
@@ -37,6 +39,19 @@ class P:
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def remat(fn, on: bool = True):
+    """``jax.checkpoint``'s counterpart: ``fn`` under a non-reentrant
+    ``torch.utils.checkpoint``, which keeps none of its activations and
+    recomputes them in the backward, when ``on`` and autograd records;
+    ``fn`` itself otherwise, so serving under ``inference_mode`` pays
+    nothing. No function it wraps draws random numbers, so the RNG state
+    is not stashed. Values are the same either way."""
+    if not (on and torch.is_grad_enabled()):
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -135,17 +150,36 @@ def _chunk_of(s: int, target: int) -> int:
     return c
 
 
+def _kv_step(m, l, acc, qi, ki, vi, mask, scale):
+    """One KV chunk of the online softmax: (m, l, acc) -> the next."""
+    s = _logits(qi, ki, scale)
+    s = s.masked_fill(~mask[None, None, None], -1e30)
+    m_new = torch.maximum(m, s.amax(-1))
+    corr = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l * corr + p.sum(-1)
+    acc_new = (acc * corr[..., None]
+               + torch.einsum("bkgqs,bskd->bkgqd", p.to(vi.dtype), vi))
+    return m_new, l_new, acc_new
+
+
 def _blockwise_attention(q, k, v, q_pos, kv_pos, kv_len, window, causal):
     """Online-softmax attention: a loop over KV chunks inside a loop over
-    Q chunks; the live score tensor is [B, Hkv, G, Qc, KVc] only."""
+    Q chunks; the live score tensor is [B, Hkv, G, Qc, KVc] only. Each KV
+    chunk's step is rematerialized under autograd, as JAX's ``kv_body``
+    is checkpointed, so the backward keeps only the carries. q and k are
+    upcast once (``_logits`` takes f32 products either way) and each
+    chunk pair's mask is made outside the step."""
     b, sq, hkv, g, hd = q.shape
     sk = k.shape[1]
     qc = _chunk_of(sq, Q_CHUNK)
     kc = _chunk_of(sk, KV_CHUNK)
     scale = hd ** -0.5
+    kv_step = remat(_kv_step)
+    qf, kf = q.float(), k.float()
     outs = []
     for i in range(0, sq, qc):
-        qi, qpi = q[:, i:i + qc], q_pos[i:i + qc]
+        qi, qpi = qf[:, i:i + qc], q_pos[i:i + qc]
         m = torch.full((b, hkv, g, qc), -math.inf, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros((b, hkv, g, qc), dtype=torch.float32,
@@ -153,17 +187,9 @@ def _blockwise_attention(q, k, v, q_pos, kv_pos, kv_len, window, causal):
         acc = torch.zeros((b, hkv, g, qc, hd), dtype=torch.float32,
                           device=q.device)
         for j in range(0, sk, kc):
-            ki, vi, kpi = k[:, j:j + kc], v[:, j:j + kc], kv_pos[j:j + kc]
-            s = _logits(qi, ki, scale)
-            mask = _attn_mask(qpi, kpi, window, kv_len, causal)
-            s = s.masked_fill(~mask[None, None, None], -1e30)
-            m_new = torch.maximum(m, s.amax(-1))
-            corr = torch.exp(m - m_new)
-            p = torch.exp(s - m_new[..., None])
-            l = l * corr + p.sum(-1)
-            acc = (acc * corr[..., None]
-                   + torch.einsum("bkgqs,bskd->bkgqd", p.to(vi.dtype), vi))
-            m = m_new
+            mask = _attn_mask(qpi, kv_pos[j:j + kc], window, kv_len, causal)
+            m, l, acc = kv_step(m, l, acc, qi, kf[:, j:j + kc],
+                                v[:, j:j + kc], mask, scale)
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4))       # [B, qc, Hkv, G, hd]
     return torch.cat(outs, dim=1).to(v.dtype)

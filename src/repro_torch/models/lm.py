@@ -11,11 +11,18 @@ materializes them on a device from an explicit ``torch.Generator``.
 ``params_from_jax`` carries a JAX parameter tree (or cache) across as
 numpy, so the two packages can be held equal on the same weights.
 
+With ``cfg.remat`` each layer body that JAX wraps in ``_maybe_remat``
+(the decoder, RWKV, Mamba2, encoder and encoder-decoder layers; the
+hybrid's shared attention block is not) runs under ``layers.remat`` when
+no cache is passed, and ``_chunked_ce`` rematerializes each of its
+chunks, as JAX's ``jax.checkpoint`` sites do.
+
 Differences from JAX that change no result: ``cache["len"]`` is a host
 int, not a 0-d device array (a device scalar would cost a host sync in
 every layer); ``init_cache`` allocates every buffer on its own (JAX binds
 one zeros array to K and V, and broadcasts the SSM states); KV buffers are
-written in place (see ``layers``).
+written in place (see ``layers``); remat applies only while autograd
+records (``layers.remat``).
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ from repro_torch.distributed.sharding import shard, tree_map
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (P, attention_block, dense_layer,
-                                       mlp_block, rms_norm)
+                                       mlp_block, remat, rms_norm)
 
 Tree = Dict[str, Any]
 
@@ -238,6 +245,19 @@ def _layer(tree: Tree, i: int) -> Tree:
     return tree_map(lambda t: t[i], tree)
 
 
+def _unstack(tree: Tree) -> list:
+    """Every layer of a stacked parameter tree, as trees of ``unbind``
+    views: their backward stacks the layers' gradients in one op a leaf,
+    where a view per index would fill a zeroed copy of the whole stack
+    for each layer."""
+    leaves = []
+    tree_map(leaves.append, tree)
+    per = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda views: views[i], per,
+                     is_leaf=lambda x: isinstance(x, tuple))
+            for i in range(leaves[0].shape[0])]
+
+
 def _stack_trees(trees) -> Optional[Tree]:
     """A list of equal-shaped trees -> one tree of stacked leaves."""
     if trees[0] is None:
@@ -283,6 +303,10 @@ def _unembed(cfg: ModelConfig, params: Tree, x: torch.Tensor
     return shard(_vocab_mask(cfg, logits), "batch", None, "vocab")
 
 
+def _maybe_remat(fn, cfg: ModelConfig):
+    return remat(fn, cfg.remat)
+
+
 def _no_aux(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -295,11 +319,12 @@ def _transformer_trunk(cfg: ModelConfig, params: Tree, x: torch.Tensor,
     """Dense/moe/vlm decoder layers. cache: {"k": [L,B,S,Hkv,hd],
     "v": ..., "len": int} or None."""
     aux = _no_aux(x)
+    layer = _maybe_remat(dense_layer, cfg) if cache is None else dense_layer
+    layers = _unstack(params["layers"])
     for i, w in enumerate(cfg.layer_windows()):
         lc = (None if cache is None else
               {"k": cache["k"][i], "v": cache["v"][i], "len": cache["len"]})
-        x, _, a = dense_layer(_layer(params["layers"], i), x, positions,
-                              cfg, w, cache=lc)
+        x, _, a = layer(layers[i], x, positions, cfg, w, cache=lc)
         aux = aux + a
     if cache is None:
         return x, None, aux
@@ -309,22 +334,28 @@ def _transformer_trunk(cfg: ModelConfig, params: Tree, x: torch.Tensor,
 
 
 def _rwkv_trunk(cfg, params, x, cache):
+    layer = (_maybe_remat(ssm.rwkv_layer, cfg) if cache is None
+             else ssm.rwkv_layer)
     states = []
-    for i in range(cfg.num_layers):
-        x, ns = ssm.rwkv_layer(_layer(params["layers"], i), x, cfg,
-                               None if cache is None else _layer(cache, i))
+    for i, lp in enumerate(_unstack(params["layers"])):
+        x, ns = layer(lp, x, cfg, None if cache is None else _layer(cache, i))
         states.append(ns)
     return x, (None if cache is None else _stack_trees(states)), _no_aux(x)
 
 
+def _mamba_residual(lp, h, cfg, st):
+    h2, ns = ssm.mamba_mix(lp, h, cfg, st)
+    return h + h2, ns
+
+
 def _mamba_stack(cfg, h, lp_stack, st_stack):
     """The mamba layers of one stacked tree (residual around each)."""
+    layer = (_maybe_remat(_mamba_residual, cfg) if st_stack is None
+             else _mamba_residual)
     states = []
-    for i in range(next(iter(lp_stack.values())).shape[0]):
-        h2, ns = ssm.mamba_mix(_layer(lp_stack, i), h, cfg,
-                               None if st_stack is None
-                               else _layer(st_stack, i))
-        h = h + h2
+    for i, lp in enumerate(_unstack(lp_stack)):
+        h, ns = layer(lp, h, cfg,
+                      None if st_stack is None else _layer(st_stack, i))
         states.append(ns)
     return h, (None if st_stack is None else _stack_trees(states))
 
@@ -337,9 +368,10 @@ def _hybrid_trunk(cfg, params, x, positions, cache):
     g, tail = _hybrid_groups(cfg)
     shared = params["shared_attn"]
     group_states = []
+    groups = _unstack(params["groups"]) if g else []
     for gi in range(g):
         st = None if cache is None else _layer(cache["mamba_g"], gi)
-        x, ns = _mamba_stack(cfg, x, _layer(params["groups"], gi), st)
+        x, ns = _mamba_stack(cfg, x, groups[gi], st)
         group_states.append(ns)
         lc = (None if cache is None else
               {"k": cache["attn_k"][gi], "v": cache["attn_v"][gi],
@@ -361,30 +393,39 @@ def _hybrid_trunk(cfg, params, x, positions, cache):
     return x, new_cache, _no_aux(x)
 
 
+def _encoder_layer(lp, h, pos, cfg):
+    a, _ = attention_block(lp["attn"], h, pos, cfg, 0, causal=False)
+    h = h + a
+    return h + mlp_block(lp["mlp"], h, cfg, gated=False)
+
+
 def _encoder(cfg, params, frames):
     """Whisper encoder over stub frame embeddings [B, T, D] (bidir attn)."""
     pos = torch.arange(frames.shape[1], device=frames.device)
     x = shard(frames.to(_dtype(cfg.dtype)), "batch", None, "embed")
-    for i in range(cfg.encoder_layers):
-        lp = _layer(params["enc_layers"], i)
-        a, _ = attention_block(lp["attn"], x, pos, cfg, 0, causal=False)
-        x = x + a
-        x = x + mlp_block(lp["mlp"], x, cfg, gated=False)
+    layer = _maybe_remat(_encoder_layer, cfg)
+    for lp in _unstack(params["enc_layers"]):
+        x = layer(lp, x, pos, cfg)
     return rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
+
+
+def _decoder_layer(lp, h, positions, memory, cfg, lc):
+    """Self-attn (cached) + cross-attn + plain MLP; (h, the layer cache)."""
+    a, lc = attention_block(lp["attn"], h, positions, cfg, 0, cache=lc)
+    h = h + a
+    c, _ = attention_block(lp["cross"], h, positions, cfg, 0, memory=memory)
+    h = h + c
+    return h + mlp_block(lp["mlp"], h, cfg, gated=False), lc
 
 
 def _encdec_trunk(cfg, params, x, positions, memory, cache):
     """Whisper decoder: self-attn (cached) + cross-attn + plain MLP."""
-    for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
+    layer = (_maybe_remat(_decoder_layer, cfg) if cache is None
+             else _decoder_layer)
+    for i, lp in enumerate(_unstack(params["layers"])):
         lc = (None if cache is None else
               {"k": cache["k"][i], "v": cache["v"][i], "len": cache["len"]})
-        a, _ = attention_block(lp["attn"], x, positions, cfg, 0, cache=lc)
-        x = x + a
-        c, _ = attention_block(lp["cross"], x, positions, cfg, 0,
-                               memory=memory)
-        x = x + c
-        x = x + mlp_block(lp["mlp"], x, cfg, gated=False)
+        x, _ = layer(lp, x, positions, memory, cfg, lc)
     if cache is None:
         return x, None, _no_aux(x)
     new_cache = {"k": cache["k"], "v": cache["v"],
@@ -457,23 +498,31 @@ def _ce_chunks(seq_len: int, vocab: int) -> int:
 def _chunked_ce(cfg: ModelConfig, params: Tree, x: torch.Tensor,
                 labels: torch.Tensor) -> torch.Tensor:
     """Next-token CE without materializing full [B, S, V] logits: the
-    unembed + logsumexp run per sequence chunk, so the live working set
-    is [B, S/nc, V]. Labels < 0 are masked."""
+    unembed + logsumexp run per sequence chunk under remat, so the live
+    working set is [B, S/nc, V]. Labels < 0 are masked."""
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     w = _unembed_weight(cfg, params, x.dtype)
     s = x.shape[1]
     nc = _ce_chunks(s, w.shape[1])
-    tot = torch.zeros((), dtype=torch.float32, device=x.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
-    for xc, lc in zip(x.chunk(nc, dim=1), labels.chunk(nc, dim=1)):
+
+    def chunk_ce(xc, lc):
         logits = _vocab_mask(cfg, _softcap(cfg, xc @ w))
         logits = shard(logits, "batch", None, "vocab").float()
         logz = torch.logsumexp(logits, dim=-1)
         idx = lc.clamp(min=0).long()[..., None]
         gold = torch.take_along_dim(logits, idx, dim=-1)[..., 0]
         mask = (lc >= 0).float()
-        tot = tot + torch.sum((logz - gold) * mask)
-        cnt = cnt + torch.sum(mask)
+        return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+    if nc == 1:
+        tot, cnt = chunk_ce(x, labels)
+    else:
+        ce = remat(chunk_ce)
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        for xc, lc in zip(x.chunk(nc, dim=1), labels.chunk(nc, dim=1)):
+            tot = tot + ce(xc, lc)[0]
+            cnt = cnt + (lc >= 0).sum().float()
     return tot / torch.clamp(cnt, min=1.0)
 
 

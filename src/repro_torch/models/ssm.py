@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import shard
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import remat, rms_norm
 
 RWKV_CHUNK = 16
 RWKV_LOGW_MIN = -4.0
@@ -31,13 +31,41 @@ RWKV_LOGW_MIN = -4.0
 
 def _scan_chunks(body, carry, xs, num_chunks: int):
     """``lax.scan`` over the leading (chunk) axis of each tensor in
-    ``xs``: (final carry, the stacked outputs). JAX's sqrt-checkpointing
-    of long scans is a training matter and comes with training."""
+    ``xs``, with JAX's sqrt-checkpointing while autograd records.
+    ``body(carry, xs_run) -> (carry, ys_run)`` takes a run of consecutive
+    chunks and loops over them itself. When the chunk count is large (past
+    32, with ``inner`` ~ sqrt(nc) dividing it) the chunks go in groups of
+    ``inner``, each group rematerialized, so the backward keeps O(sqrt(nc))
+    carries instead of O(nc) (the inter-chunk carry is large: [B, H, K,
+    V]); otherwise ``body`` takes every chunk at once. JAX also
+    checkpoints each chunk's body: here that body is the carry update
+    alone (the scans batch every other term over the chunk axis), which
+    holds nothing a checkpoint would drop, so that level is left out."""
+    if not torch.is_grad_enabled() or num_chunks <= 32:
+        return body(carry, xs)
+    inner = 1
+    while inner * inner < num_chunks:
+        inner *= 2
+    if num_chunks % inner:
+        return body(carry, xs)
+    group = remat(body)
     ys = []
-    for i in range(num_chunks):
-        carry, y = body(carry, tuple(t[i] for t in xs))
+    for xg in zip(*(t.split(inner) for t in xs)):
+        carry, y = group(carry, xg)
         ys.append(y)
-    return carry, torch.stack(ys)
+    return carry, torch.cat(ys)
+
+
+def _carry(st, fall, add):
+    """The inter-chunk carry of both scans over a run of chunks (chunk-
+    major ``fall`` and ``add``): S_c = fall_c * S_{c-1} + add_c. Returns
+    (the last state, each chunk's incoming state stacked). The chunks are
+    ``unbind`` views, whose backward stacks their gradients in one op."""
+    s_in = []
+    for f, a in zip(fall.unbind(0), add.unbind(0)):
+        s_in.append(st)
+        st = f * st + a
+    return st, torch.stack(s_in)
 
 
 # =====================================================================
@@ -109,6 +137,13 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, log_a: torch.Tensor,
     x [B, S, H, P]; dt/log_a [B, S, H]; bm/cm [B, S, N]; s0 [B, H, P, N].
     y_t = C_t^T S_t,  S_t = alpha_t S_{t-1} + dt_t B_t (x_t)^T.
     Returns (y [B, S, H, P] f32, final state).
+
+    JAX's scan body computes everything a chunk needs. Here only the
+    state recurrence (``S' = exp(L_Q) S + increment``, one update a chunk)
+    runs chunk by chunk; every other term is batched over the chunk axis,
+    the inter-chunk output over each run of chunks from their incoming
+    states. The same terms, in a few launches a chunk instead of a few
+    dozen.
     """
     b, s, h, p = x.shape
     n = bm.shape[-1]
@@ -116,36 +151,38 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, log_a: torch.Tensor,
     assert s % q == 0, (s, q)
     nc = s // q
 
-    def r(t, width):                     # [B, S, ...] -> [Nc, B, Q, ...]
-        return t.reshape(b, nc, q, *width).movedim(1, 0)
+    def r(t, width):                     # [B, S, ...] -> [B, Nc, Q, ...]
+        return t.reshape(b, nc, q, *width)
 
-    xc, dtc, lac = r(x, (h, p)), r(dt, (h,)), r(log_a, (h,))
+    xc, dtc, lac = r(x, (h, p)).float(), r(dt, (h,)), r(log_a, (h,))
     bc, cc = r(bm, (n,)), r(cm, (n,))
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
-                                 device=x.device))[None, :, :, None]
+                                 device=x.device))[None, None, :, :, None]
+    lcum = torch.cumsum(lac, dim=2)                  # [B, Nc, Q, H]
+    # intra: M[t, s'] = (C_t.B_s') exp(Lt - Ls') dt_s'  (s' <= t); the
+    # exponent is masked, not the product (exp of a future pair's
+    # difference overflows, and inf * 0 is NaN)
+    cb = torch.einsum("bcqn,bcsn->bcqs", cc, bc)
+    diff = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]
+    decay = torch.exp(diff.masked_fill(~mask, -torch.inf))
+    m = cb[..., None] * decay * dtc[:, :, None, :, :]
+    y_intra = torch.einsum("bcqsh,bcshp->bcqhp", m, xc)
+    # inter: y += exp(Lt) C_t @ S_prev;
+    # state: S' = exp(L_Q) S + sum_s exp(L_Q - L_s) dt_s B_s x_s^T
+    growth = torch.exp(lcum)                          # [B, Nc, Q, H]
+    tail = torch.exp(lcum[:, :, -1:, :] - lcum) * dtc
+    add = torch.einsum("bcsn,bcshp->bchpn", bc, xc * tail[..., None])
+    fall = torch.exp(lcum[:, :, -1])[..., None, None]  # [B, Nc, H, 1, 1]
 
-    def body(st, inp):                               # st [B, H, P, N]
-        xq, dq, laq, bq, cq = inp
-        lcum = torch.cumsum(laq, dim=1)              # [B, Q, H] inclusive
-        # intra: M[t, s'] = (C_t.B_s') exp(Lt - Ls') dt_s'  (s' <= t);
-        # the exponent is masked, not the product (exp of a future pair's
-        # difference overflows, and inf * 0 is NaN)
-        cb = torch.einsum("bqn,bsn->bqs", cq, bq)
-        diff = lcum[:, :, None, :] - lcum[:, None, :, :]
-        decay = torch.exp(diff.masked_fill(~mask, -torch.inf))
-        m = cb[..., None] * decay * dq[:, None, :, :]
-        y_intra = torch.einsum("bqsh,bshp->bqhp", m, xq.float())
-        # inter: y += exp(Lt) C_t @ S_prev
-        y_inter = torch.einsum("bqn,bhpn,bqh->bqhp", cq, st, torch.exp(lcum))
-        # state: S' = exp(L_Q) S + sum_s exp(L_Q - L_s) dt_s B_s x_s^T
-        tail = torch.exp(lcum[:, -1:, :] - lcum) * dq     # [B, Q, H]
-        s_new = (torch.exp(lcum[:, -1])[:, :, None, None] * st
-                 + torch.einsum("bsn,bshp,bsh->bhpn", bq, xq.float(), tail))
-        return s_new, y_intra + y_inter
+    def run(st, inp):                    # chunk-major [n, B, ...]
+        f, a, c, g = inp
+        st, s_in = _carry(st, f, a)
+        return st, torch.einsum("cbqn,cbhpn->cbqhp", c, s_in) * g[..., None]
 
-    s_fin, ys = _scan_chunks(body, s0, (xc, dtc, lac, bc, cc), nc)
-    y = ys.movedim(0, 1).reshape(b, s, h, p)
-    return y, s_fin
+    s_fin, y_inter = _scan_chunks(run, s0, tuple(
+        t.movedim(1, 0) for t in (fall, add, cc, growth)), nc)
+    y = y_intra + y_inter.movedim(0, 1)
+    return y.reshape(b, s, h, p), s_fin
 
 
 def mamba_decode_step(params: Dict, x: torch.Tensor, cfg,
@@ -239,45 +276,48 @@ def _wkv_chunked(r, k, v, logw, u, s0
     S_t = diag(w_t) S_{t-1} + k_t v_t^T (decays act on the K index).
 
     r/k/v [B, S, H, K]; logw same; u [H, K]; s0 [B, H, K, K(V)].
-    Returns (y [B, S, H, K], final state). f32 throughout.
+    Returns (y [B, S, H, K], final state). f32 throughout. As in
+    ``_ssd_chunked``, only the state recurrence runs chunk by chunk and
+    every other term is batched over the chunk axis.
     """
     b, s, h, hk = r.shape
     q = min(RWKV_CHUNK, s)
     assert s % q == 0, (s, q)
     nc = s // q
 
-    def rs(t):
-        return t.reshape(b, nc, q, h, hk).movedim(1, 0)
+    def rs(t):                           # [B, S, ...] -> [B, Nc, Q, ...]
+        return t.reshape(b, nc, q, h, hk)
 
     rc, kc, vc, wc = rs(r), rs(k), rs(v), rs(logw)
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=r.device),
                       -1)
     uf = u.float()
+    wcum = torch.cumsum(wc, dim=2)                    # inclusive
+    wex = wcum - wc                                   # exclusive
+    # inter-chunk: y_t += (r_t * exp(Wex_t)) @ S_prev
+    rr = rc * torch.exp(wex)
+    # intra: A[t,s'] = sum_k r_tk k_s'k exp(Wex_t - Wc_s'), s' < t
+    kk = kc * torch.exp(-wcum)
+    a = torch.einsum("bcqhk,bcshk->bchqs", rr, kk)
+    a = a.masked_fill(~mask, 0.0)
+    # bonus diagonal: r_t.(u * k_t) v_t
+    diag = torch.einsum("bcqhk,bcqhk->bcqh", rc, kc * uf)
+    av = torch.einsum("bchqs,bcshv->bcqhv", a, vc)
+    dv = diag[..., None] * vc
+    # state update: S' = exp(Wc_Q) S + sum_s exp(Wc_Q - Wc_s) k_s v_s^T
+    tail = torch.exp(wcum[:, :, -1:] - wcum)          # [B, Nc, Q, H, K]
+    add = torch.einsum("bcshk,bcshv->bchkv", kc * tail, vc)
+    fall = torch.exp(wcum[:, :, -1])[..., None]       # [B, Nc, H, K, 1]
 
-    def body(st, inp):                                # st [B, H, K, V]
-        rq, kq, vq, lw = inp                          # [B, Q, H, K]
-        wcum = torch.cumsum(lw, dim=1)                # inclusive
-        wex = wcum - lw                               # exclusive
-        # inter-chunk: y_t += (r_t * exp(Wex_t)) @ S_prev
-        rr = rq * torch.exp(wex)
-        y_inter = torch.einsum("bqhk,bhkv->bqhv", rr, st)
-        # intra: A[t,s'] = sum_k r_tk k_s'k exp(Wex_t - Wc_s'), s' < t
-        kk = kq * torch.exp(-wcum)
-        a = torch.einsum("bqhk,bshk->bhqs", rr, kk)
-        a = a.masked_fill(~mask[None, None], 0.0)
-        # bonus diagonal: r_t.(u * k_t) v_t
-        diag = torch.einsum("bqhk,bqhk->bqh", rq, kq * uf[None, None])
-        y = (y_inter + torch.einsum("bhqs,bshv->bqhv", a, vq)
-             + diag[..., None] * vq)
-        # state update: S' = exp(Wc_Q) S + sum_s exp(Wc_Q - Wc_s) k_s v_s^T
-        tail = torch.exp(wcum[:, -1:] - wcum)         # [B, Q, H, K]
-        s_new = (torch.exp(wcum[:, -1])[..., None] * st
-                 + torch.einsum("bshk,bshv->bhkv", kq * tail, vq))
-        return s_new, y
+    def run(st, inp):                    # chunk-major [n, B, ...]
+        f, a, rq = inp
+        st, s_in = _carry(st, f, a)
+        return st, torch.einsum("cbqhk,cbhkv->cbqhv", rq, s_in)
 
-    s_fin, ys = _scan_chunks(body, s0, (rc, kc, vc, wc), nc)
-    y = ys.movedim(0, 1).reshape(b, s, h, hk)
-    return y, s_fin
+    s_fin, y_inter = _scan_chunks(run, s0, tuple(
+        t.movedim(1, 0) for t in (fall, add, rr)), nc)
+    y = y_inter.movedim(0, 1) + av + dv
+    return y.reshape(b, s, h, hk), s_fin
 
 
 def rwkv_channel_mix(params: Dict, x: torch.Tensor, cfg,

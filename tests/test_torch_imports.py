@@ -42,7 +42,9 @@ def test_port_has_files():
                 "configs/registry.py", "configs/shapes.py",
                 "configs/starling_segment.py", "models/config.py",
                 "models/layers.py", "models/ssm.py", "models/lm.py",
-                "launch/serve.py"):
+                "launch/serve.py", "launch/train.py", "optim/__init__.py",
+                "optim/adamw.py", "data/pipeline.py", "ft/__init__.py",
+                "ft/checkpoint.py", "ft/straggler.py"):
         assert pkg / mod in FILES
     for arch in ("gemma3_1b", "granite_20b", "internvl2_1b", "minitron_8b",
                  "moonshot_16b", "qwen3_moe_235b", "rwkv6_1p6b",
@@ -50,18 +52,16 @@ def test_port_has_files():
         assert pkg / "configs" / f"{arch}.py" in FILES
 
 
-# names of a JAX package's namespace the port does not export: TPU-only,
-# or waiting for the slice that ports the module they come from
+# names of a JAX package's namespace the port does not export: TPU-only
 NOT_EXPORTED = {
-    "kernels": {"set_interpret", "interpret_default"},   # TPU-only
-    "data": {"TokenPipeline"},                           # data/pipeline
+    "kernels": {"set_interpret", "interpret_default"},
 }
 # names the port exports beyond JAX's namespace
 EXTRA = {"distributed": {"compress_with_feedback", "compressed_psum",
                          "dequantize", "ef_init", "quantize"},
          "kernels": {"LAUNCHES", "reset_launches"}}     # launch counts
 PACKAGES = ("core", "io", "pq", "data", "kernels", "serving", "obs",
-            "configs", "distributed", "models", "launch")
+            "configs", "distributed", "models", "launch", "optim", "ft")
 
 
 def _declared(init: pathlib.Path) -> set:

@@ -25,18 +25,45 @@ def test_constants_equal_jax():
     assert TSS.RWKV_LOGW_MIN == JSS.RWKV_LOGW_MIN
 
 
-def test_scan_chunks_is_lax_scan():
-    xs = (torch.arange(12.).reshape(4, 3), torch.ones(4, 2))
+@pytest.mark.parametrize("n", [4, 64, 36])
+def test_scan_chunks_is_lax_scan(n):
+    """``_scan_chunks`` hands its body runs of consecutive chunks (all of
+    them, or groups of 8 at 64 chunks while autograd records: the sqrt
+    path; 36 is not a multiple of 8, so it takes one run); chained, the
+    runs are ``lax.scan`` of the per-chunk body, carry, outputs and
+    gradient."""
+    xs = (torch.arange(3. * n).reshape(n, 3) / n, torch.ones(n, 2))
 
-    def body(c, inp):
-        a, b = inp
-        return c + a.sum() + b.sum(), c * a
-    carry, ys = TSS._scan_chunks(body, torch.tensor(1.0), xs, 4)
+    def chunk(c, a, b):
+        return c * 0.5 + a.sum() + b.sum(), c * a
+
+    runs = []
+
+    def run(c, inp):
+        runs.append(inp[0].shape[0])
+        ys = []
+        for a, b in zip(*(t.unbind(0) for t in inp)):
+            c, y = chunk(c, a, b)
+            ys.append(y)
+        return c, torch.stack(ys)
+    c0 = torch.tensor(1.0, requires_grad=True)
+    carry, ys = TSS._scan_chunks(run, c0, xs, n)
+    assert runs == ([8] * 8 if n == 64 else [n])
     jc, jys = jax.lax.scan(
-        lambda c, inp: (c + inp[0].sum() + inp[1].sum(), c * inp[0]),
-        jnp.asarray(1.0), tuple(jnp.asarray(t.numpy()) for t in xs))
-    assert float(carry) == float(jc)
-    np.testing.assert_array_equal(ys.numpy(), np.asarray(jys))
+        lambda c, inp: chunk(c, *inp), jnp.asarray(1.0),
+        tuple(jnp.asarray(t.numpy()) for t in xs))
+    np.testing.assert_allclose(float(carry.detach()), float(jc), rtol=1e-6)
+    np.testing.assert_allclose(ys.detach().numpy(), np.asarray(jys),
+                               rtol=1e-6)
+    (g,) = torch.autograd.grad(carry + ys.sum(), c0)
+    gj = jax.grad(lambda c: (lambda r: r[0] + r[1].sum())(jax.lax.scan(
+        lambda c, inp: chunk(c, *inp), c,
+        tuple(jnp.asarray(t.numpy()) for t in xs))))(jnp.asarray(1.0))
+    np.testing.assert_allclose(float(g), float(gj), rtol=1e-6)
+    with torch.no_grad():
+        runs.clear()
+        TSS._scan_chunks(run, c0, xs, n)
+        assert runs == [n]
 
 
 @pytest.mark.parametrize("with_state", [False, True])
