@@ -280,8 +280,31 @@ them:
      0.1 under step 0's, checkpoints 20, 40, 60 kept; then ``--resume
      --steps 80`` prints "resumed from step 60". No kernel of
      ``kernels/csrc`` runs here either;
- 22. summary: the launches of every kernel by phase (the build, Vamana,
-     each window of phases 6-21; phase 5's comparisons and the CPU
+ 22. lm mesh: the LM under ``use_rules`` on a one-rank (1, 1) ("data",
+     "model") ``DeviceMesh`` of a one-rank NCCL group (opened and
+     destroyed here, as phase 19's): ``moonshot-v1-16b-a3b`` at its full
+     ``CONFIG`` with bf16 weights (48 layers, 64 experts top-6, 2
+     shared; ~53.8 GiB, drawn in bf16, no f32 copy of any leaf), laid out
+     by their specs as DTensors (a rank's shard is the whole tensor),
+     a prefill of 8 x 512 tokens and 16 greedy bf16 decode steps, each
+     forward through ``_capacity_dispatch_ep`` once a layer (the calls
+     counted: 48 a forward); prefill ms and tokens/s, the median decode
+     ms, peak memory and one profiled decode step (idle share,
+     launches); the same without the mesh on the same weights (no EP
+     call). Then at full width and 4 layers under
+     ``torch.use_deterministic_algorithms``: the meshed prefill logits
+     and 4 decode tokens equal the plain run's bit for bit; 2-layer f32
+     copies of moonshot, ``gemma3-1b`` and ``rwkv6-1.6b`` under the mesh
+     on the card against the plain forward on the CPU (1e-4 x scale +
+     1e-5). Beside all that, three ``python -m repro_torch.launch.dryrun``
+     children (a fake group of 256 or 512 ranks cannot share this
+     process's): gemma3-1b decode_32k on both production meshes,
+     moonshot decode_32k on the single-pod one, and ``--starling``; every
+     record must be ``OK`` and each child exit 0 within its timeout; a
+     rank's bytes, FLOPs, collective bytes and dominant term printed. No
+     kernel of ``kernels/csrc`` runs here;
+ 23. summary: the launches of every kernel by phase (the build, Vamana,
+     each window of phases 6-22; phase 5's comparisons and the CPU
      comparisons and timings of phases 13, 15 and 16 are not counted)
      and in total; one JSON line of the kernels with the totals, the card
      line, and last ``{"ok": true, "device": {...}}``.
@@ -298,7 +321,8 @@ then builds n/4 vectors, its HNSW n/2, and phase 20 serves the smoke
 configurations of the three models, 2 x 128 tokens, without the
 card-against-CPU check; phase 21 trains them, with the full
 configurations' remat and accumulation, on 4 x 128 tokens, and holds the
-CPU against itself).
+CPU against itself; phase 22 serves moonshot's smoke configuration on a
+one-rank gloo group, its f32 checks against the CPU itself).
 """
 from __future__ import annotations
 
@@ -382,6 +406,16 @@ LM_TRAIN_STEPS = 4                   # phase 21: timed steps after a warm-up
 RESTART_STEPS = 3                    # phase 21: steps before and after
 ENTRY_STEPS, ENTRY_RESUME = 60, 80   # phase 21: launch.train run, resume
 BF16_OPS_PER_S = 989e12              # H100 SXM dense bf16 (data sheet)
+MESH_ARCH = "moonshot-v1-16b-a3b"    # phase 22: the MoE served on a mesh
+MESH_PROMPT, MESH_DECODE = 512, 16   # phase 22: 8 x 512 prompts; steps
+MESH_EQ_LAYERS = 4                   # phase 22: meshed = plain, bit for bit
+MESH_F32 = ("moonshot-v1-16b-a3b", "gemma3-1b", "rwkv6-1.6b")  # 2 layers
+DRYRUN_CELLS = (("--arch", "gemma3-1b", "--shape", "decode_32k", "--mesh",
+                 "both"),
+                ("--arch", "moonshot-v1-16b-a3b", "--shape", "decode_32k",
+                 "--mesh", "single"),
+                ("--starling",))
+DRYRUN_TIMEOUT_S = 400               # each dry-run child
 
 
 class SmokeFailure(Exception):
@@ -1039,6 +1073,323 @@ def lm_train(device, on_card: bool, card: str, seed: int) -> None:
           f"-> {loss[last]:.4f} at step {last} ({first_s:.3f} s), "
           f"checkpoints {kept}; --resume --steps {ENTRY_RESUME}: resumed "
           f"from step {ENTRY_STEPS}, kept {kept2} ({resume_s:.3f} s)")
+
+
+def lm_mesh(device, on_card: bool, card: str, seed: int) -> None:
+    """Phase 22: the LM on a mesh (``use_rules`` on a one-rank (1, 1)
+    ("data", "model") ``DeviceMesh``) and the dry run; see the module
+    docstring."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import CONFIGS, SMOKE_CONFIGS
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import layers as LY
+    from repro_torch.models import lm as LM
+    from repro_torch.models.layers import P
+
+    # the dry run, in processes of its own (each cell opens a fake group
+    # of 256 or 512 ranks, which cannot share this process's group):
+    # started now, read at the end
+    runs = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src"))
+    children = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out",
+         os.path.join(runs.name, f"cells{i}.jsonl")], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i, argv in enumerate(DRYRUN_CELLS)]
+    import gc
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"  memory held from earlier phases: "
+          f"{torch.cuda.memory_allocated(device) / 2 ** 30:.3f} GiB"
+          if on_card else "  CPU rehearsal: smoke configs, a gloo group")
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    def bound(ref, got):
+        ref, got = ref.float(), got.float().to(ref.device)
+        scale = float(ref.abs().max())
+        return float((ref - got).abs().max()), 1e-4 * scale + 1e-5
+
+    ep_calls = [0]
+    plain_ep = LY._capacity_dispatch_ep
+
+    def counted(*a, **kw):
+        ep_calls[0] += 1
+        return plain_ep(*a, **kw)
+
+    store = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
+    dist.init_process_group(
+        "nccl" if on_card else "gloo",
+        init_method=f"file://{store.name}/store", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=300),
+        **({"device_id": torch.device(
+            "cuda", torch.cuda.current_device())} if on_card else {}))
+    LY._capacity_dispatch_ep = counted
+    try:
+        mesh = init_device_mesh(device.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rules = rules_for(mesh)
+
+        def on_mesh(cfg, params):
+            """The parameters laid out by their specs on the one-rank
+            mesh (each rank's shard is the whole tensor: no copy)."""
+            specs = []
+            SH.tree_map(specs.append, LM.param_specs(cfg),
+                        is_leaf=lambda x: isinstance(x, P))
+            it = iter(specs)
+
+            def one(t):
+                ps = next(it)
+                return DTensor.from_local(t, mesh, SH.placements(
+                    SH.logical_spec(ps.shape, ps.axes, rules, mesh), mesh),
+                    run_check=False)
+            with torch.inference_mode():     # the weights' own mode
+                return SH.tree_map(one, params)
+
+        def rows(t):
+            return DTensor.from_local(t, mesh, SH.placements(SH.logical_spec(
+                t.shape, ("batch",) + (None,) * (t.ndim - 1), rules, mesh),
+                mesh), run_check=False)
+
+        def serve(cfg, params, prompt, meshed, steps, keep_logits=False):
+            """``lm.prefill`` and ``steps`` greedy ``decode_step``s, under
+            the rules when ``meshed``: prefill ms, step ms, the prefill's
+            logits (all, or the last row), the tokens, the cache, the EP
+            calls of the prefill and of each step."""
+            ctx = (SH.use_rules(rules, mesh) if meshed
+                   else contextlib.nullcontext())
+            calls = []
+            with ctx, torch.inference_mode():
+                ep_calls[0] = 0
+                sync(device)
+                t0 = time.perf_counter()
+                logits, cache = LM.prefill(cfg, params,
+                                           rows(prompt) if meshed else prompt,
+                                           prompt.shape[1] + steps)
+                sync(device)
+                pre_ms = (time.perf_counter() - t0) * 1e3
+                calls.append(ep_calls[0])
+                kept = full(logits if keep_logits else logits[:, -1:])
+                tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+                del logits
+                toks, dec_ms = [full(tok)], []
+                for _ in range(steps - 1):
+                    ep_calls[0] = 0
+                    sync(device)
+                    t0 = time.perf_counter()
+                    lg, cache = LM.decode_step(cfg, params, cache, tok)
+                    tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+                    sync(device)
+                    dec_ms.append((time.perf_counter() - t0) * 1e3)
+                    calls.append(ep_calls[0])
+                    toks.append(full(tok))
+                    check(bool(torch.isfinite(full(lg)[..., :cfg.vocab_size])
+                               .all()), f"{cfg.name}: decode not finite")
+            return (pre_ms, dec_ms, kept, torch.cat(toks, dim=1), cache, tok,
+                    calls)
+
+        def profile_step(cfg, params, cache, tok, meshed):
+            from torch.profiler import ProfilerActivity, profile
+            ctx = (SH.use_rules(rules, mesh) if meshed
+                   else contextlib.nullcontext())
+            with ctx, torch.inference_mode(), profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                sync(device)
+                t0 = time.perf_counter()
+                LM.decode_step(cfg, params, cache, tok)
+                sync(device)
+                wall = (time.perf_counter() - t0) * 1e3
+            ev = prof.key_averages()
+            busy = sum(getattr(e, "self_device_time_total", 0)
+                       for e in ev) / 1e3
+            launches = sum(e.count for e in ev
+                           if e.key == "cudaLaunchKernel")
+            return wall, busy, launches
+
+        # ---- the MoE at its full CONFIG (bf16 weights) under the mesh
+        base = CONFIGS[MESH_ARCH] if on_card else dataclasses.replace(
+            SMOKE_CONFIGS[MESH_ARCH], moe_dispatch="capacity")
+        cfg = dataclasses.replace(base, param_dtype="bfloat16")
+        check(cfg.moe_dispatch == "capacity",
+              f"{MESH_ARCH}: its dispatch is {cfg.moe_dispatch}")
+        batch, plen = (LM_BATCH, MESH_PROMPT) if on_card else (2, 32)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            params = LM.init_params(cfg, gen, device=device)
+            prompt = torch.randint(0, cfg.vocab_size, (batch, plen),
+                                   generator=gen, device=device,
+                                   dtype=torch.int32)
+        sync(device)
+        n_params = sum(t.numel() for t in _leaves(params))
+        w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        check(all(t.dtype == torch.bfloat16 for t in _leaves(params)),
+              f"{MESH_ARCH}: a weight leaf not bf16")
+        print(f"  {MESH_ARCH} ({cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.num_experts} experts top-"
+              f"{cfg.experts_per_token}, {cfg.num_shared_experts} shared, "
+              f"vocab {cfg.vocab_size}): {n_params} parameters, bf16 "
+              f"{w_bytes} B ({w_bytes / 2 ** 30:.2f} GiB), init "
+              f"{time.perf_counter() - t0:.3f} s")
+        runs_out = {}
+        for meshed in (True, False):
+            tag = "mesh (1, 1)" if meshed else "no mesh"
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+            p = on_mesh(cfg, params) if meshed else params
+            pre_ms, dec_ms, last, toks, cache, tok, calls = serve(
+                cfg, p, prompt, meshed, MESH_DECODE)
+            want = cfg.num_layers if meshed else 0
+            check(all(c == want for c in calls),
+                  f"{MESH_ARCH} {tag}: _capacity_dispatch_ep calls {calls} "
+                  f"(expected {want} a forward)")
+            check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                  f"{MESH_ARCH} {tag}: a token past the vocabulary")
+            prof = (profile_step(cfg, p, cache, tok, meshed) if on_card
+                    else None)
+            peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                    if on_card else float("nan"))
+            del cache
+            runs_out[meshed] = toks
+            print(f"    {tag}: prefill {batch} x {plen} {pre_ms:.3f} ms "
+                  f"({batch * plen / pre_ms * 1e3:.1f} tokens/s); decode "
+                  f"median {np.median(dec_ms):.3f} ms a step (min "
+                  f"{min(dec_ms):.3f}, max {max(dec_ms):.3f}; "
+                  f"{MESH_DECODE - 1} steps); _capacity_dispatch_ep "
+                  f"{calls[0]} calls in the prefill, {calls[1]} a step; "
+                  f"peak {peak:.3f} GiB; {card}")
+            if prof is not None:
+                print(f"      one decode step profiled: wall {prof[0]:.3f} "
+                      f"ms, device busy {prof[1]:.3f} ms, idle share "
+                      f"{1 - prof[1] / prof[0]:.4f}, {prof[2]} kernel "
+                      f"launches")
+            del p
+        same = int((runs_out[True] == runs_out[False]).all(-1).sum())
+        print(f"    greedy tokens, mesh against no mesh: {same} of {batch} "
+              f"sequences the same over {MESH_DECODE} steps (full depth, "
+              f"bf16; printed, not held)")
+        del params, prompt, runs_out
+
+        # ---- meshed = plain, bit for bit, at full width and 4 layers
+        cfg4 = dataclasses.replace(cfg, num_layers=min(MESH_EQ_LAYERS,
+                                                       cfg.num_layers))
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        torch.use_deterministic_algorithms(True)
+        try:
+            with torch.inference_mode():
+                params = LM.init_params(cfg4, gen, device=device)
+                prompt = torch.randint(0, cfg4.vocab_size, (batch, plen),
+                                       generator=gen, device=device,
+                                       dtype=torch.int32)
+            got = serve(cfg4, on_mesh(cfg4, params), prompt, True, 4,
+                        keep_logits=True)
+            want = serve(cfg4, params, prompt, False, 4, keep_logits=True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        check(got[6][0] == cfg4.num_layers and want[6][0] == 0,
+              f"{MESH_ARCH} at {cfg4.num_layers} layers: EP calls "
+              f"{got[6]} / {want[6]}")
+        gap = float((got[2].float() - want[2].float()).abs().max())
+        check(torch.equal(got[2], want[2]) and torch.equal(got[3], want[3]),
+              f"{MESH_ARCH} at {cfg4.num_layers} layers: the meshed prefill "
+              f"logits or decode tokens differ from the plain run's (max "
+              f"|diff| {gap})")
+        print(f"  {MESH_ARCH} at {cfg4.num_layers} layers, full width, bf16, "
+              f"deterministic: the meshed prefill logits "
+              f"{tuple(got[2].shape)} and 4 decode tokens equal the plain "
+              f"run's bit for bit (expert-parallel against "
+              f"_capacity_dispatch)")
+        del params, prompt, got, want
+
+        # ---- f32, 2 layers: the meshed card against the plain CPU; the
+        # MoE with the card's sums in a fixed order (its index_put_ adds by
+        # atomics otherwise, and a capacity choice near a tie in the
+        # second layer's router may then fall either way from run to run)
+        for arch in MESH_F32:
+            base = CONFIGS[arch] if on_card else SMOKE_CONFIGS[arch]
+            c = dataclasses.replace(base, num_layers=2, dtype="float32")
+            if c.family == "moe":
+                c = dataclasses.replace(c, moe_dispatch="capacity")
+            torch.use_deterministic_algorithms(c.family == "moe")
+            gen = torch.Generator(device=device).manual_seed(seed + 2)
+            with torch.inference_mode():
+                p = LM.init_params(c, gen, device=device)
+                p_cpu = _tree_to(p, "cpu")
+                toks = torch.randint(0, c.vocab_size, (2, LM_CHECK_TOKENS),
+                                     generator=gen, device=device,
+                                     dtype=torch.int32)
+                ep_calls[0] = 0
+                with SH.use_rules(rules, mesh):
+                    on, _, _ = LM.forward(c, on_mesh(c, p), rows(toks))
+                    on = full(on)
+                ref, _, _ = LM.forward(c, p_cpu, toks.cpu())
+            want = 2 if (c.family == "moe") else 0
+            check(ep_calls[0] == want, f"{arch}: {ep_calls[0]} EP calls")
+            diff, lim = bound(ref[..., :c.vocab_size], on[..., :c.vocab_size])
+            check(diff <= lim, f"{arch}: the meshed f32 forward on the card "
+                  f"differs from the CPU's by {diff} (bound {lim})")
+            print(f"  {arch} at 2 layers, f32, 2 x {LM_CHECK_TOKENS} tokens: "
+                  f"the mesh on the {device.type} against the plain CPU "
+                  f"{diff:.4g} (bound {lim:.4g})")
+            del p, p_cpu, on, ref
+    finally:
+        torch.use_deterministic_algorithms(False)
+        LY._capacity_dispatch_ep = plain_ep
+        dist.destroy_process_group()
+        store.cleanup()
+
+    # ---- the dry run's records
+    try:
+        for argv, ch in zip(DRYRUN_CELLS, children):
+            try:
+                out, err = ch.communicate(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                ch.kill()
+                ch.communicate()
+                raise SmokeFailure(f"dry run {' '.join(argv)}: past "
+                                   f"{DRYRUN_TIMEOUT_S} s")
+            check(ch.returncode == 0, f"dry run {' '.join(argv)}: exit "
+                  f"{ch.returncode}: {err[-2000:]}")
+        recs = []
+        for i in range(len(DRYRUN_CELLS)):
+            with open(os.path.join(runs.name, f"cells{i}.jsonl")) as f:
+                recs += [json.loads(line) for line in f]
+        want = sum(2 if ("both" in a or "--starling" in a) else 1
+                   for a in DRYRUN_CELLS)
+        check(len(recs) == want, f"dry run: {len(recs)} records (expected "
+              f"{want})")
+        for r in recs:
+            check(r.get("status") == "OK", f"dry run {r['arch']} "
+                  f"{r['shape']} {r['mesh']}: {r.get('status')} "
+                  f"{r.get('error', '')}")
+            bpd = r["bytes_per_device"]
+            if r["arch"] == "starling-search":
+                print(f"  dry run {r['arch']} {r['mesh']} ({r['chips']} "
+                      f"ranks): argument {bpd['argument']} B a rank, "
+                      f"collective {r['collective_bytes']} B (the step's "
+                      f"two all-gathers; the round loop is not traced)")
+                continue
+            print(f"  dry run {r['arch']} {r['shape']} {r['mesh']} "
+                  f"({r['chips']} ranks, {r['lower_s']} s): a rank's "
+                  f"argument {bpd['argument']} B, peak {bpd['peak']} B, "
+                  f"total {bpd['total']} B; {r['hlo_flops']:.6g} FLOPs, "
+                  f"{r['hlo_bytes']:.6g} B moved, collective "
+                  f"{r['collective_bytes']} B {r['collectives']}; dominant "
+                  f"{r['dominant']} (roofline on the H100's 989e12 FLOP/s, "
+                  f"3.35e12 B/s, 450e9 B/s)")
+    finally:
+        for ch in children:
+            if ch.poll() is None:
+                ch.kill()
+                ch.communicate()
+        runs.cleanup()
 
 
 def _leaves(tree):
@@ -3286,6 +3637,10 @@ def main() -> int:
     with phase("21 lm train"):
         lm_train(device, on_card, card, args.seed)
         take("21 lm train")
+
+    with phase("22 lm mesh"):
+        lm_mesh(device, on_card, card, args.seed)
+        take("22 lm mesh")
 
     total = {name: sum(c[name] for c in by_phase.values())
              for name in KERNELS}

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.params import DeviceSearchParams
+from repro_torch.distributed.sharding import ArgSpec  # noqa: F401 (re-export)
 from repro_torch.io import hotset
 from repro_torch import kernels as K
 from repro_torch.kernels import dedup, ref
@@ -800,26 +801,6 @@ def stack_segments(segments) -> DeviceSegment:
 
 # ------------------------------------------------- the multi-rank step
 
-@dataclasses.dataclass(frozen=True)
-class ArgSpec:
-    """A sharded argument described without allocating it (the
-    counterpart of JAX's sharded ``ShapeDtypeStruct``): the global
-    ``shape`` and ``dtype``, the ``spec`` (``distributed.sharding.
-    PartitionSpec``), its DTensor ``placements`` on the mesh and the
-    ``local_shape`` each rank holds."""
-    shape: tuple
-    dtype: torch.dtype
-    spec: tuple
-    placements: tuple
-    local_shape: tuple
-
-    @property
-    def local_nbytes(self) -> int:
-        """One rank's bytes of this argument."""
-        return (math.prod(self.local_shape)
-                * torch.empty((), dtype=self.dtype).element_size())
-
-
 def make_search_step(mesh, rules, *,
                      n_local: int = 1 << 21, dim: int = 128,
                      eps: int = 16, lam: int = 31, q_global: int = 4096,
@@ -849,9 +830,8 @@ def make_search_step(mesh, rules, *,
     arguments (``vecs`` and ``hot_vecs`` in bf16; ``search``'s tier-0
     budget sizes the hot pack) without allocating them; ``fn`` casts
     both to f32."""
-    from repro_torch.distributed.sharding import (PartitionSpec,
-                                                  axis_names, axis_sizes,
-                                                  placements)
+    from repro_torch.distributed.sharding import (PartitionSpec, arg_spec,
+                                                  axis_names, axis_sizes)
 
     if search is None:
         search = DeviceSearchParams(candidates=64, max_hops=128)
@@ -864,13 +844,7 @@ def make_search_step(mesh, rules, *,
     dsub = dim // pq_m
 
     def sds(shape, dtype, spec):
-        local = list(shape)
-        for i, entry in enumerate(spec):
-            for a in (() if entry is None else entry
-                      if isinstance(entry, tuple) else (entry,)):
-                local[i] //= sizes[a]
-        return ArgSpec(tuple(shape), dtype, spec, placements(spec, mesh),
-                       tuple(local))
+        return arg_spec(shape, dtype, spec, mesh)
 
     seg_spec = PartitionSpec("model")
     i32 = torch.int32

@@ -86,20 +86,27 @@ def make_train_step(cfg: ModelConfig, opt: AdamW):
             loss, metrics, grads = grads_of(params, batch)
         else:
             def split(x):
+                if x.ndim == 0:
+                    return [x] * accum
                 b = x.shape[0]
                 if b % accum:
                     raise ValueError(f"batch {b} does not split into "
                                      f"{accum} microbatches")
-                return (x.reshape(accum, b // accum, *x.shape[1:])
-                        if x.ndim > 0 else x)
+                m = b // accum
+                if hasattr(x, "placements"):
+                    # on a mesh: JAX's contiguous microbatches, each laid
+                    # out by rows again (a rank's rows are not one
+                    # microbatch's)
+                    return [shard(x[i * m:(i + 1) * m], "batch",
+                                  *([None] * (x.ndim - 1)))
+                            for i in range(accum)]
+                return x.reshape(accum, m, *x.shape[1:]).unbind(0)
             micro = {k: split(v) for k, v in batch.items()}
             loss_sum = torch.zeros((), dtype=torch.float32, device=device)
-            grad_sum = [torch.zeros(p.shape, dtype=torch.float32,
-                                    device=device)
+            grad_sum = [torch.zeros_like(p, dtype=torch.float32)
                         for p in tree_leaves(params)]
             for i in range(accum):
-                mb = {k: (v[i] if v.ndim > 0 else v)
-                      for k, v in micro.items()}
+                mb = {k: v[i] for k, v in micro.items()}
                 loss, _, grads = grads_of(params, mb)
                 loss_sum = loss_sum + loss
                 for s, g in zip(grad_sum, tree_leaves(grads)):

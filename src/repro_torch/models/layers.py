@@ -12,6 +12,12 @@ Where PyTorch's defaults differ from JAX's, the JAX behaviour is kept:
 GeLU is the tanh approximation, top-k breaks ties by the lower index, a
 cache write clamps its start as ``lax.dynamic_update_slice`` does, and
 the attention logits are an f32 product of q and k upcast before it.
+
+Under ``use_rules`` on a ``DeviceMesh`` the parameters and activations
+are DTensors: the contractions go through ``distributed.sharding.
+einsum`` (each rank contracts its local shards), a KV cache is written
+rank by rank into its local shard, and capacity dispatch under a mesh
+with a ``model`` axis is JAX's expert-parallel ``_capacity_dispatch_ep``.
 """
 from __future__ import annotations
 
@@ -24,8 +30,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import (axis_names, axis_sizes,
-                                              current_rules, shard)
+from repro_torch.distributed.sharding import (as_dtensor, axis_names,
+                                              axis_sizes, batch_local,
+                                              current_rules, einsum,
+                                              from_local_shard, local_shard,
+                                              logical_spec, placements,
+                                              shard, unshard_dim, ways)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,7 +140,7 @@ def _logits(q, k, scale: float) -> torch.Tensor:
     """[B, Q, Hkv, G, hd] x [B, S, Hkv, hd] -> f32 [B, Hkv, G, Q, S]:
     q and k upcast before the product, as JAX's
     ``preferred_element_type=float32`` takes the products exactly."""
-    return torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
+    return einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
 
 
 def _plain_attention(q, k, v, q_pos, kv_pos, kv_len, window, causal):
@@ -139,7 +149,7 @@ def _plain_attention(q, k, v, q_pos, kv_pos, kv_len, window, causal):
     mask = _attn_mask(q_pos, kv_pos, window, kv_len, causal)
     logits = logits.masked_fill(~mask[None, None, None], -1e30)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return einsum("bkgqs,bskd->bqkgd", probs, v)
 
 
 def _chunk_of(s: int, target: int) -> int:
@@ -159,7 +169,7 @@ def _kv_step(m, l, acc, qi, ki, vi, mask, scale):
     p = torch.exp(s - m_new[..., None])
     l_new = l * corr + p.sum(-1)
     acc_new = (acc * corr[..., None]
-               + torch.einsum("bkgqs,bskd->bkgqd", p.to(vi.dtype), vi))
+               + einsum("bkgqs,bskd->bkgqd", p.to(vi.dtype), vi))
     return m_new, l_new, acc_new
 
 
@@ -180,12 +190,12 @@ def _blockwise_attention(q, k, v, q_pos, kv_pos, kv_len, window, causal):
     outs = []
     for i in range(0, sq, qc):
         qi, qpi = qf[:, i:i + qc], q_pos[i:i + qc]
-        m = torch.full((b, hkv, g, qc), -math.inf, dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((b, hkv, g, qc), dtype=torch.float32,
-                        device=q.device)
-        acc = torch.zeros((b, hkv, g, qc, hd), dtype=torch.float32,
-                          device=q.device)
+        # the carries are laid out as q's chunk (on a mesh: each rank's)
+        acc = torch.zeros_like(qi.permute(0, 2, 3, 1, 4),   # [B,Hkv,G,qc,hd]
+                               memory_format=torch.contiguous_format)
+        m = torch.full_like(acc[..., 0], -math.inf,
+                            memory_format=torch.contiguous_format)
+        l = torch.zeros_like(m)
         for j in range(0, sk, kc):
             mask = _attn_mask(qpi, kv_pos[j:j + kc], window, kv_len, causal)
             m, l, acc = kv_step(m, l, acc, qi, kf[:, j:j + kc],
@@ -210,6 +220,8 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, h, hd = q.shape
     hkv = k.shape[2]
     g = h // hkv
+    if hkv % ways(q, 2):
+        q = unshard_dim(q, 2)          # the mesh does not divide the kv heads
     q = q.reshape(b, sq, hkv, g, hd)
     if sq * k.shape[1] > _BLOCKWISE_THRESHOLD and sq >= 64:
         out = _blockwise_attention(q, k, v, q_pos, kv_pos, kv_len, window,
@@ -225,11 +237,32 @@ def write_cache(buf: torch.Tensor, new: torch.Tensor,
     """Write ``new`` [B, S, ...] into ``buf`` [B, Smax, ...] at sequence
     position ``start``, in place, placed as ``jax.lax.dynamic_update_slice``
     places it: a negative start counts from the end, and the start is
-    clamped into [0, Smax - S] so that the update fits."""
+    clamped into [0, Smax - S] so that the update fits. A DTensor buffer
+    is written rank by rank: ``new`` is laid out as the buffer but whole
+    along the sequence, and each rank writes the part of [start, start +
+    S) that its shard of the sequence holds (a ``kv_seq``-sharded cache
+    takes each new token on one ``model`` rank)."""
     s, smax = new.shape[1], buf.shape[1]
     start = int(start) + (smax if start < 0 else 0)
     start = min(max(start, 0), smax - s)
-    buf[:, start:start + s] = new.to(buf.dtype)
+    if not hasattr(buf, "placements"):
+        buf[:, start:start + s] = new.to(buf.dtype)
+        return buf
+    from torch.distributed.tensor import Replicate
+    mesh = buf.device_mesh
+    pl = [Replicate() if (p.is_shard() and p.dim == 1) else p
+          for p in buf.placements]
+    loc = buf.to_local()
+    upd = as_dtensor(new.to(buf.dtype), mesh).redistribute(mesh, pl)
+    upd = upd.to_local()
+    off = 0
+    for k, p in enumerate(buf.placements):
+        if p.is_shard() and p.dim == 1:
+            off = off * mesh.size(k) + mesh.get_local_rank(k)
+    off *= loc.shape[1]
+    lo, hi = max(start, off), min(start + s, off + loc.shape[1])
+    if lo < hi:
+        loc[:, lo - off:hi - off] = upd[:, lo - start:hi - start]
     return buf
 
 
@@ -249,11 +282,11 @@ def attention_block(params: Dict, x: torch.Tensor, positions: torch.Tensor,
     b, sq, _ = x.shape
     hd = cfg.hd
     xn = rms_norm(x, params["ln"], cfg.norm_eps)
-    q = shard(torch.einsum("bsd,dhe->bshe", xn, params["wq"]),
+    q = shard(einsum("bsd,dhe->bshe", xn, params["wq"]),
               "batch", None, "heads", None)
     src = xn if memory is None else memory.to(xn.dtype)
-    k = torch.einsum("bsd,dhe->bshe", src, params["wk"])
-    v = torch.einsum("bsd,dhe->bshe", src, params["wv"])
+    k = einsum("bsd,dhe->bshe", src, params["wk"])
+    v = einsum("bsd,dhe->bshe", src, params["wv"])
 
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
@@ -279,7 +312,7 @@ def attention_block(params: Dict, x: torch.Tensor, positions: torch.Tensor,
 
     out = gqa_attention(q, k, v, positions, kv_pos, kv_len, window,
                         causal=causal and memory is None)
-    out = torch.einsum("bshe,hed->bsd", out, params["wo"])
+    out = einsum("bshe,hed->bsd", out, params["wo"])
     return shard(out, "batch", None, "embed"), cache
 
 
@@ -290,14 +323,14 @@ def mlp_block(params: Dict, x: torch.Tensor, cfg,
     """Gated (SwiGLU/GeGLU) or plain two-matrix FFN, pre-norm."""
     xn = rms_norm(x, params["ln"], cfg.norm_eps)
     act = activation(cfg)
-    up = torch.einsum("bsd,df->bsf", xn, params["w_up"])
+    up = einsum("bsd,df->bsf", xn, params["w_up"])
     if gated:
-        gate = torch.einsum("bsd,df->bsf", xn, params["w_gate"])
+        gate = einsum("bsd,df->bsf", xn, params["w_gate"])
         hidden = act(gate) * up
     else:
         hidden = act(up)
     hidden = shard(hidden, "batch", None, "ff")
-    out = torch.einsum("bsf,fd->bsd", hidden, params["w_down"])
+    out = einsum("bsf,fd->bsd", hidden, params["w_down"])
     return shard(out, "batch", None, "embed")
 
 
@@ -307,11 +340,11 @@ def _dense_dispatch(params: Dict, xn: torch.Tensor, combine: torch.Tensor,
                     cfg, act) -> torch.Tensor:
     """Every expert on every token, masked by combine [B, S, E]; the
     combine weights fold into the hidden before the down projection."""
-    gate = torch.einsum("bsd,edf->bsef", xn, params["w_gate"])
-    up = torch.einsum("bsd,edf->bsef", xn, params["w_up"])
+    gate = einsum("bsd,edf->bsef", xn, params["w_gate"])
+    up = einsum("bsd,edf->bsef", xn, params["w_up"])
     hidden = shard(act(gate) * up, "batch", None, "experts", None)
     hidden = hidden * combine[..., None]
-    return torch.einsum("bsef,efd->bsd", hidden, params["w_down"])
+    return einsum("bsef,efd->bsd", hidden, params["w_down"])
 
 
 def _capacity_dispatch(params: Dict, xn: torch.Tensor,
@@ -331,14 +364,94 @@ def _capacity_dispatch(params: Dict, xn: torch.Tensor,
     rows = torch.arange(b, device=xn.device)[:, None, None].expand_as(top_s)
     xg = xn[rows, top_s]                                # [B, E, C, D]
     xg = shard(xg, "batch", "experts", None, None)
-    gate = torch.einsum("becd,edf->becf", xg, params["w_gate"])
-    up = torch.einsum("becd,edf->becf", xg, params["w_up"])
+    gate = einsum("becd,edf->becf", xg, params["w_gate"])
+    up = einsum("becd,edf->becf", xg, params["w_up"])
     hidden = shard(act(gate) * up, "batch", "experts", None, None)
     hidden = hidden * top_w[..., None].to(hidden.dtype)
-    part = torch.einsum("becf,efd->becd", hidden, params["w_down"])
+    part = einsum("becf,efd->becd", hidden, params["w_down"])
     out = torch.zeros((b, s, d), dtype=part.dtype, device=part.device)
     out.index_put_((rows, top_s), part, accumulate=True)
     return shard(out, "batch", None, "embed")
+
+
+def _capacity_dispatch_ep(params: Dict, xn: torch.Tensor,
+                          combine: torch.Tensor, cfg, act,
+                          rules, mesh) -> torch.Tensor:
+    """Expert parallelism, JAX's ``shard_map`` as a local function: every
+    rank runs the capacity dispatch for ITS experts on ITS
+    (replicated-over-``model``) rows; the weights arrive FSDP-sharded and
+    are all-gathered explicitly; the only other collective is the sum of
+    the [B, S, D] partial outputs over ``model``.
+
+    The five inputs are laid out by JAX's ``in_specs`` and handed to the
+    local function as their local shards (``to_local``); its output comes
+    back as a DTensor that is ``Partial`` over ``model``, and the
+    redistribute to JAX's ``out_specs`` is the sum. The all-gathers
+    (minor axis first, so the tiles land major to minor;
+    ``all_gather_tensor_autograd`` while autograd records) and the sum are
+    differentiable, so the train step's backward runs the same path."""
+    from torch.distributed._functional_collectives import (
+        all_gather_tensor, all_gather_tensor_autograd)
+    from torch.distributed.tensor import Partial
+
+    b, s, d = xn.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    cap = max(min(s, int(math.ceil(s * k * cfg.moe_capacity_factor / e))),
+              1)
+    data_axes = tuple(a for a in axis_names(mesh) if a != "model")
+    sizes = axis_sizes(mesh)
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+
+    def spec(shape, axes):
+        return placements(logical_spec(shape, axes, rules, mesh), mesh)
+
+    # the autograd collective has no kernel outside autograd (inference
+    # mode): the plain one there
+    gather = (all_gather_tensor_autograd if torch.is_grad_enabled()
+              else all_gather_tensor)
+
+    def local_fn(xn_l, comb_l, wg_l, wu_l, wd_l):
+        # FSDP gather of this rank's expert weights (w_gate/w_up shard
+        # d_model; w_down shards d_model on its output dim)
+        for a in reversed(data_axes):
+            if sizes[a] == 1:          # a one-rank axis gathers nothing
+                continue
+            group = mesh.get_group(a)
+            wg_l = gather(wg_l, 1, group)
+            wu_l = gather(wu_l, 1, group)
+            wd_l = gather(wd_l, 2, group)
+        bl, sl, dl = xn_l.shape
+        w_te = comb_l.transpose(1, 2)                 # [Bl, El, S]
+        top_w, top_s = top_k(w_te, cap)               # [Bl, El, C]
+        rows = torch.arange(bl, device=xn_l.device)[:, None, None]
+        rows = rows.expand_as(top_s)
+        xg = xn_l[rows, top_s]                        # [Bl, El, C, D]
+        gate = torch.einsum("becd,edf->becf", xg, wg_l)
+        up = torch.einsum("becd,edf->becf", xg, wu_l)
+        hidden = act(gate) * up
+        hidden = hidden * top_w[..., None].to(hidden.dtype)
+        part = torch.einsum("becf,efd->becd", hidden, wd_l)
+        out = torch.zeros((bl, sl, dl), dtype=part.dtype,
+                          device=part.device)
+        out.index_put_((rows, top_s), part, accumulate=True)
+        return out
+
+    ins = (xn, combine, wg, wu, wd)
+    in_specs = (spec(xn.shape, ("batch", None, None)),
+                spec(combine.shape, ("batch", None, "experts")),
+                spec(wg.shape, ("experts", "fsdp", None)),
+                spec(wu.shape, ("experts", "fsdp", None)),
+                spec(wd.shape, ("experts", None, "fsdp")))
+    out_spec = spec(xn.shape, ("batch", None, None))
+    split = [True] * mesh.ndim
+    locs = [local_shard(as_dtensor(t, mesh), pl, split)
+            for t, pl in zip(ins, in_specs)]
+    out = local_fn(*locs)
+    names = axis_names(mesh)
+    partial = [Partial() if names[i] == "model" else p
+               for i, p in enumerate(out_spec)]
+    out = from_local_shard(out, mesh, partial, (b, s, out.shape[2]))
+    return out.redistribute(mesh, out_spec)
 
 
 def _expert_parallel(cfg) -> bool:
@@ -350,46 +463,50 @@ def _expert_parallel(cfg) -> bool:
             and cfg.num_experts % axis_sizes(mesh)["model"] == 0)
 
 
-def moe_block(params: Dict, x: torch.Tensor, cfg
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k routed mixture of experts. Dispatch: ``cfg.moe_dispatch`` =
-    "dense" (all experts on all tokens) or "capacity" (gather top-C
-    tokens per expert). Returns (out, aux_loss).
-
-    JAX runs capacity dispatch under a mesh with a ``model`` axis as an
-    expert-parallel ``shard_map`` (``_capacity_dispatch_ep``); that comes
-    with the slice that ports ``launch/{specs,dryrun}``, and until then
-    this raises rather than run the unsharded dispatch."""
-    if _expert_parallel(cfg):
-        raise NotImplementedError(
-            "moe_block: capacity dispatch under a mesh with a 'model' axis "
-            "is JAX's expert-parallel _capacity_dispatch_ep, which comes "
-            "with the slice that ports launch/{specs,dryrun}")
-    b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.experts_per_token
-    xn = rms_norm(x, params["ln"], cfg.norm_eps)
-    logits = torch.einsum("bsd,de->bse", xn.float(),
-                          params["router"].float())
+def _route(logits: torch.Tensor, k: int, e: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Router logits [B, S, E] -> (probs, combine [B, S, E] f32: the
+    renormalized top-k probabilities, 0 for unrouted experts)."""
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = top_k(probs, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
-
-    # combine weights as a dense [B, S, E] tensor (0 for unrouted experts)
-    combine = torch.zeros((b, s, e), dtype=torch.float32, device=x.device)
+    b, s, _ = logits.shape
+    combine = torch.zeros((b, s, e), dtype=torch.float32,
+                          device=logits.device)
     combine.scatter_(-1, top_i, top_p)
+    return probs, combine
+
+
+def moe_block(params: Dict, x: torch.Tensor, cfg
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed mixture of experts; experts sharded over ``model``
+    (EP). Dispatch: ``cfg.moe_dispatch`` = "dense" (all experts on all
+    tokens) or "capacity" (gather top-C tokens per expert; under a mesh
+    whose ``model`` axis divides the experts, the expert-parallel
+    ``_capacity_dispatch_ep``). The routing runs on each rank's rows
+    (``batch_local``). Returns (out, aux_loss)."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    xn = rms_norm(x, params["ln"], cfg.norm_eps)
+    logits = einsum("bsd,de->bse", xn.float(), params["router"].float())
+    probs, combine = batch_local(_route, logits, k, e, batch=(0, None, None))
     combine = shard(combine.to(x.dtype), "batch", None, "experts")
 
     act = activation(cfg)
-    if cfg.moe_dispatch == "capacity":
+    if _expert_parallel(cfg):
+        rules, mesh = current_rules()
+        out = _capacity_dispatch_ep(params, xn, combine, cfg, act, rules,
+                                    mesh)
+    elif cfg.moe_dispatch == "capacity":
         out = _capacity_dispatch(params, xn, combine, cfg, act)
     else:
         out = _dense_dispatch(params, xn, combine, cfg, act)
 
     if cfg.num_shared_experts:
-        sh_gate = torch.einsum("bsd,df->bsf", xn, params["shared_w_gate"])
-        sh_up = torch.einsum("bsd,df->bsf", xn, params["shared_w_up"])
-        out = out + torch.einsum("bsf,fd->bsd", act(sh_gate) * sh_up,
-                                 params["shared_w_down"])
+        sh_gate = einsum("bsd,df->bsf", xn, params["shared_w_gate"])
+        sh_up = einsum("bsd,df->bsf", xn, params["shared_w_up"])
+        out = out + einsum("bsf,fd->bsd", act(sh_gate) * sh_up,
+                           params["shared_w_down"])
 
     # load-balancing aux loss (Switch-style): E * sum_e f_e * P_e
     frac_routed = (combine > 0).float().mean(dim=(0, 1))

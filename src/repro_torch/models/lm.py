@@ -17,6 +17,11 @@ hybrid's shared attention block is not) runs under ``layers.remat`` when
 no cache is passed, and ``_chunked_ce`` rematerializes each of its
 chunks, as JAX's ``jax.checkpoint`` sites do.
 
+Under ``use_rules`` on a ``DeviceMesh`` the parameters and token rows
+are DTensors: the embedding is a vocab-parallel lookup (``_lookup``), the
+CE gathers the vocab before its logsumexp, and ``prefill`` lays the cache
+out as ``launch.specs.cache_specs`` describes it.
+
 Differences from JAX that change no result: ``cache["len"]`` is a host
 int, not a 0-d device array (a device scalar would cost a host sync in
 every layer); ``init_cache`` allocates every buffer on its own (JAX binds
@@ -31,7 +36,9 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import shard, tree_map
+from repro_torch.distributed.sharding import (as_dtensor, einsum,
+                                              from_local_shard, local_shard,
+                                              shard, tree_map, unshard_dim)
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (P, attention_block, dense_layer,
@@ -201,7 +208,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             return torch.full(p.shape, p.scale, dtype=dtype, device=device)
         w = torch.randn(p.shape, generator=generator, dtype=dtype,
                         device=generator.device)
-        return (w * p.scale).to(device)
+        return w.mul_(p.scale).to(device)     # in place: no second copy
 
     return tree_map(one, param_specs(cfg), is_leaf=_is_p)
 
@@ -267,9 +274,42 @@ def _stack_trees(trees) -> Optional[Tree]:
     return torch.stack(trees)
 
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. On a DTensor table (vocab rows sharded over
+    ``model``, the FSDP columns gathered) each rank looks up the ids its
+    vocab shard holds and zeros for the rest, a sum pending over the mesh
+    dims that shard the vocab (Megatron's vocab-parallel embedding);
+    exactly one rank adds a row, so the sum is the row."""
+    if not hasattr(table, "placements"):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    tok = as_dtensor(tokens, mesh)
+    vocab = [p.is_shard() and p.dim == 0 for p in table.placements]
+    rows = [p.is_shard() and p.dim == 0 and not v
+            for p, v in zip(tok.placements, vocab)]
+    t_l = local_shard(table, [Shard(0) if v else Replicate() for v in vocab],
+                      rows)
+    k_l = local_shard(tok, [Shard(0) if r else Replicate() for r in rows],
+                      rows)
+    off = 0
+    for k, v in enumerate(vocab):
+        if v:
+            off = off * mesh.size(k) + mesh.get_local_rank(k)
+    off *= t_l.shape[0]
+    idx = k_l.long() - off
+    hit = (idx >= 0) & (idx < t_l.shape[0])
+    got = t_l[idx.clamp(0, t_l.shape[0] - 1)]
+    got = torch.where(hit[..., None], got, torch.zeros_like(got))
+    pl = [Partial() if v else Shard(0) if r else Replicate()
+          for v, r in zip(vocab, rows)]
+    return from_local_shard(got, mesh, pl,
+                            tuple(tokens.shape) + (table.shape[1],))
+
+
 def _embed(cfg: ModelConfig, params: Tree, tokens: torch.Tensor
            ) -> torch.Tensor:
-    x = params["embed"].to(_dtype(cfg.dtype))[tokens]
+    x = _lookup(params["embed"].to(_dtype(cfg.dtype)), tokens)
     if cfg.scale_embed:
         # sqrt(D) rounded to the compute dtype first, as JAX's asarray
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype).item()
@@ -299,7 +339,8 @@ def _softcap(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
 def _unembed(cfg: ModelConfig, params: Tree, x: torch.Tensor
              ) -> torch.Tensor:
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    logits = _softcap(cfg, x @ _unembed_weight(cfg, params, x.dtype))
+    logits = _softcap(cfg, einsum("bsd,dv->bsv", x,
+                                  _unembed_weight(cfg, params, x.dtype)))
     return shard(_vocab_mask(cfg, logits), "batch", None, "vocab")
 
 
@@ -444,8 +485,8 @@ def _forward_hidden(cfg: ModelConfig, params: Tree, tokens: torch.Tensor,
     params = _cast_params(cfg, params)
     x = _embed(cfg, params, tokens)
     if cfg.family == "vlm" and patch_embeds is not None:
-        pe = torch.einsum("bpd,de->bpe", patch_embeds.to(x.dtype),
-                          params["patch_proj"])
+        pe = einsum("bpd,de->bpe", patch_embeds.to(x.dtype),
+                    params["patch_proj"])
         x = torch.cat([shard(pe, "batch", None, "embed"), x], dim=1)
     if positions is None:
         start = cache.get("len", 0) if cache is not None else 0
@@ -506,8 +547,12 @@ def _chunked_ce(cfg: ModelConfig, params: Tree, x: torch.Tensor,
     nc = _ce_chunks(s, w.shape[1])
 
     def chunk_ce(xc, lc):
-        logits = _vocab_mask(cfg, _softcap(cfg, xc @ w))
-        logits = shard(logits, "batch", None, "vocab").float()
+        logits = _vocab_mask(cfg, _softcap(cfg, einsum("bsd,dv->bsv",
+                                                        xc, w)))
+        # the logsumexp and the gold logit read whole rows: on a mesh the
+        # vocab shards are gathered first
+        logits = unshard_dim(shard(logits, "batch", None, "vocab").float(),
+                             -1)
         logz = torch.logsumexp(logits, dim=-1)
         idx = lc.clamp(min=0).long()[..., None]
         gold = torch.take_along_dim(logits, idx, dim=-1)[..., 0]
@@ -581,6 +626,11 @@ def prefill(cfg: ModelConfig, params: Tree, tokens: torch.Tensor,
             cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Tree]:
     cache = init_cache(cfg, tokens.shape[0], max_len, cache_dtype,
                        device=tokens.device)
+    if hasattr(tokens, "placements"):
+        # on a mesh the cache is laid out as ``launch.specs.cache_specs``
+        # describes it
+        from repro_torch.launch.specs import shard_cache
+        cache = shard_cache(cfg, cache, tokens.shape[0])
     if cfg.family == "audio":
         cache["memory"] = _encoder(cfg, _cast_params(cfg, params),
                                    frames).to(cache_dtype)

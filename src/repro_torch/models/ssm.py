@@ -22,7 +22,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import (batch_local, einsum, shard,
+                                              unshard_dim, ways)
 from repro_torch.models.layers import remat, rms_norm
 
 RWKV_CHUNK = 16
@@ -100,7 +101,7 @@ def mamba_mix(params: Dict, x: torch.Tensor, cfg,
     di, n, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
     h = cfg.ssm_heads
     xn = rms_norm(x, params["ln"], cfg.norm_eps)
-    proj = torch.einsum("bsd,de->bse", xn, params["in_proj"])
+    proj = einsum("bsd,de->bse", xn, params["in_proj"])
     proj = shard(proj, "batch", None, "inner")
     z, xbc, dt_raw = torch.tensor_split(proj, [di, 2 * di + 2 * n], dim=-1)
 
@@ -112,17 +113,16 @@ def mamba_mix(params: Dict, x: torch.Tensor, cfg,
     dt = F.softplus(dt_raw.float() + params["dt_bias"])   # [B, S, H]
     log_a = -torch.exp(params["a_log"].float()) * dt
 
-    ssm_state = (state["ssm"] if state is not None
-                 else torch.zeros((b, h, p, n), dtype=torch.float32,
-                                  device=x.device))
-    y, new_ssm = _ssd_chunked(xs, dt, log_a, bm.float(), cm.float(),
-                              ssm_state, cfg.ssm_chunk)
+    ssm_state = state["ssm"] if state is not None else None
+    y, new_ssm = batch_local(_ssd_chunked, xs, dt, log_a, bm.float(),
+                             cm.float(), ssm_state, cfg.ssm_chunk,
+                             batch=(0, 0, 0, 0, 0, 0, None))
     y = y + params["d_skip"][None, None, :, None] * xs.float()
     y = y.reshape(b, s, di)
     # the gate in f32, rounded once, as XLA fuses it
     y = (y.to(x.dtype).float() * F.silu(z.float())).to(x.dtype)
     y = rms_norm(y, params["gate_ln"], cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, params["out_proj"])
+    out = einsum("bse,ed->bsd", y, params["out_proj"])
     out = shard(out, "batch", None, "embed")
     new_state = ({"conv": new_conv.to(state["conv"].dtype),
                   "ssm": new_ssm} if state is not None else None)
@@ -134,7 +134,8 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, log_a: torch.Tensor,
                  chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan.
 
-    x [B, S, H, P]; dt/log_a [B, S, H]; bm/cm [B, S, N]; s0 [B, H, P, N].
+    x [B, S, H, P]; dt/log_a [B, S, H]; bm/cm [B, S, N]; s0 [B, H, P, N]
+    (None: zeros).
     y_t = C_t^T S_t,  S_t = alpha_t S_{t-1} + dt_t B_t (x_t)^T.
     Returns (y [B, S, H, P] f32, final state).
 
@@ -147,6 +148,8 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, log_a: torch.Tensor,
     """
     b, s, h, p = x.shape
     n = bm.shape[-1]
+    if s0 is None:
+        s0 = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
     q = min(chunk, s)
     assert s % q == 0, (s, q)
     nc = s // q
@@ -208,10 +211,9 @@ def init_mamba_state(cfg, batch: int, dtype=torch.float32,
 def _token_shift(xn: torch.Tensor, state: Optional[Dict]) -> torch.Tensor:
     """The previous token's input: the carried ``shift`` for the first
     position (zeros without a state)."""
-    if state is not None:
-        return torch.cat([state["shift"][:, None].to(xn.dtype), xn[:, :-1]],
-                         dim=1)
-    return F.pad(xn, (0, 0, 1, 0))[:, :-1]
+    first = (state["shift"][:, None].to(xn.dtype) if state is not None
+             else torch.zeros_like(xn[:, :1]))
+    return torch.cat([first, xn[:, :-1]], dim=1)
 
 
 def rwkv_time_mix(params: Dict, x: torch.Tensor, cfg,
@@ -229,31 +231,32 @@ def rwkv_time_mix(params: Dict, x: torch.Tensor, cfg,
     # data-dependent lerp for r, k, v, w, g
     xx = prev - xn
     xxx = xn + xx * params["mu_base"]
-    lora = torch.einsum("bsfl,fld->bsfd",
-                        torch.tanh(torch.einsum("bsd,dfl->bsfl", xxx,
-                                                params["mix_wa"])),
-                        params["mix_wb"])              # [B, S, 5, D]
+    lora = einsum("bsfl,fld->bsfd",
+                  torch.tanh(einsum("bsd,dfl->bsfl", xxx, params["mix_wa"])),
+                  params["mix_wb"])                    # [B, S, 5, D]
     mixed = xn[:, :, None] + xx[:, :, None] * (params["mu"] + lora)
     xr, xk, xv, xw, xg = [mixed[:, :, i] for i in range(5)]
 
-    r = torch.einsum("bsd,de->bse", xr, params["wr"]).reshape(b, s, h, hk)
-    k = torch.einsum("bsd,de->bse", xk, params["wk"]).reshape(b, s, h, hk)
-    v = torch.einsum("bsd,de->bse", xv, params["wv"]).reshape(b, s, h, hk)
-    g = torch.einsum("bsd,de->bse", xg, params["wg"])
+    def heads(t):                        # [B, S, D] -> [B, S, H, K]
+        if h % ways(t, 2):               # the mesh does not divide heads
+            t = unshard_dim(t, 2)
+        return t.reshape(b, s, h, hk)
+    r = heads(einsum("bsd,de->bse", xr, params["wr"]))
+    k = heads(einsum("bsd,de->bse", xk, params["wk"]))
+    v = heads(einsum("bsd,de->bse", xv, params["wv"]))
+    g = einsum("bsd,de->bse", xg, params["wg"])
     # per-channel log-decay, clamped (see module docstring)
     ww = (params["w0"]
-          + torch.einsum("bsl,ld->bsd",
-                         torch.tanh(torch.einsum("bsd,dl->bsl", xw,
-                                                 params["decay_wa"])),
-                         params["decay_wb"]))
+          + einsum("bsl,ld->bsd",
+                   torch.tanh(einsum("bsd,dl->bsl", xw, params["decay_wa"])),
+                   params["decay_wb"]))
     logw = torch.clamp(-torch.exp(ww.float()), RWKV_LOGW_MIN, -1e-5)
-    logw = logw.reshape(b, s, h, hk)
+    logw = heads(logw)
     u = params["u"].reshape(h, hk)
 
-    wkv0 = (state["wkv"] if state is not None
-            else torch.zeros((b, h, hk, hk), dtype=torch.float32,
-                             device=x.device))
-    y, wkv_fin = _wkv_chunked(r.float(), k.float(), v.float(), logw, u, wkv0)
+    wkv0 = state["wkv"] if state is not None else None
+    y, wkv_fin = batch_local(_wkv_chunked, r.float(), k.float(), v.float(),
+                             logw, u, wkv0, batch=(0, 0, 0, 0, None, 0))
 
     # per-head group norm (biased variance, as jnp.var), gate, out-proj
     y = y.reshape(b, s, h, hk)
@@ -262,8 +265,8 @@ def rwkv_time_mix(params: Dict, x: torch.Tensor, cfg,
     y = (y - mean) * torch.rsqrt(var + 64e-5)
     y = (y * (1.0 + params["gn_g"].reshape(h, hk))
          + params["gn_b"].reshape(h, hk))
-    y = y.reshape(b, s, d).to(x.dtype) * F.silu(g)
-    out = torch.einsum("bsd,de->bse", y, params["wo"])
+    y = y.reshape(b, s, d).to(x.dtype) * F.silu(heads(g).reshape(b, s, d))
+    out = einsum("bsd,de->bse", y, params["wo"])
     out = shard(out, "batch", None, "embed")
     new_state = ({"shift": xn[:, -1].to(state["shift"].dtype),
                   "wkv": wkv_fin} if state is not None else None)
@@ -275,12 +278,15 @@ def _wkv_chunked(r, k, v, logw, u, s0
     """Chunked WKV6: y_t = r_t.(diag(u) k_t v_t^T + S_{t-1});
     S_t = diag(w_t) S_{t-1} + k_t v_t^T (decays act on the K index).
 
-    r/k/v [B, S, H, K]; logw same; u [H, K]; s0 [B, H, K, K(V)].
+    r/k/v [B, S, H, K]; logw same; u [H, K]; s0 [B, H, K, K(V)] (None:
+    zeros).
     Returns (y [B, S, H, K], final state). f32 throughout. As in
     ``_ssd_chunked``, only the state recurrence runs chunk by chunk and
     every other term is batched over the chunk axis.
     """
     b, s, h, hk = r.shape
+    if s0 is None:
+        s0 = torch.zeros((b, h, hk, hk), dtype=torch.float32, device=r.device)
     q = min(RWKV_CHUNK, s)
     assert s % q == 0, (s, q)
     nc = s // q
@@ -329,10 +335,10 @@ def rwkv_channel_mix(params: Dict, x: torch.Tensor, cfg,
     xx = _token_shift(xn, state) - xn
     xk = xn + xx * params["mu_k"]
     xr = xn + xx * params["mu_r"]
-    kk = torch.einsum("bsd,df->bsf", xk, params["wk"])
+    kk = einsum("bsd,df->bsf", xk, params["wk"])
     kk = shard(torch.square(torch.relu(kk)), "batch", None, "ff")
-    vv = torch.einsum("bsf,fd->bsd", kk, params["wv"])
-    rr = torch.sigmoid(torch.einsum("bsd,de->bse", xr, params["wr"]))
+    vv = einsum("bsf,fd->bsd", kk, params["wv"])
+    rr = torch.sigmoid(einsum("bsd,de->bse", xr, params["wr"]))
     out = shard(rr * vv, "batch", None, "embed")
     new_state = ({"shift": xn[:, -1].to(state["shift"].dtype)}
                  if state is not None else None)

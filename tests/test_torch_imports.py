@@ -44,7 +44,8 @@ def test_port_has_files():
                 "models/layers.py", "models/ssm.py", "models/lm.py",
                 "launch/serve.py", "launch/train.py", "optim/__init__.py",
                 "optim/adamw.py", "data/pipeline.py", "ft/__init__.py",
-                "ft/checkpoint.py", "ft/straggler.py"):
+                "ft/checkpoint.py", "ft/straggler.py", "launch/specs.py",
+                "launch/dryrun.py", "distributed/hlo.py"):
         assert pkg / mod in FILES
     for arch in ("gemma3_1b", "granite_20b", "internvl2_1b", "minitron_8b",
                  "moonshot_16b", "qwen3_moe_235b", "rwkv6_1p6b",

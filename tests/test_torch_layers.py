@@ -21,7 +21,6 @@ from repro.models import lm as JLM
 
 from repro_torch.configs import SMOKE_CONFIGS as T_SMOKE
 from repro_torch.distributed.sharding import SINGLE_POD_RULES, use_rules
-from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import layers as TLY
 from repro_torch.models import lm as TLM
 
@@ -345,17 +344,32 @@ def test_capacity_dispatch_matches_dense_at_full_capacity():
     assert float(aux1) == pytest.approx(float(aux2), rel=1e-4)
 
 
-def test_capacity_dispatch_under_a_model_mesh_raises():
-    """JAX runs it as the expert-parallel ``shard_map``; the port raises,
-    naming the slice that brings it, and does not quietly run the
-    unsharded dispatch."""
+def test_capacity_dispatch_ep_on_a_one_rank_mesh_equals_plain(tmp_path):
+    """Under a (1, 1) ("data", "model") ``DeviceMesh`` on a one-rank gloo
+    group, capacity dispatch runs JAX's expert-parallel path
+    (``_capacity_dispatch_ep``, once a call) and equals the plain
+    ``_capacity_dispatch`` bit for bit, output and aux loss."""
+    from tests.test_torch_sharding import world_of_one
     _, tc, _, mt = _moe_params("qwen3-moe-235b-a22b")
     tc = dataclasses.replace(tc, moe_dispatch="capacity")
-    x = torch.zeros((2, 4, tc.d_model))
-    with use_rules(SINGLE_POD_RULES, make_debug_mesh(2, 4)):
-        with pytest.raises(NotImplementedError, match=r"launch/\{specs"):
-            TLY.moe_block(mt, x, tc)
-    TLY.moe_block(mt, x, tc)     # no rules: the plain capacity dispatch
+    x = torch.as_tensor(normal((2, 24, tc.d_model), 13))
+    plain, aux = TLY.moe_block(mt, x, tc)
+    calls = []
+    real = TLY._capacity_dispatch_ep
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    TLY._capacity_dispatch_ep = counted
+    try:
+        with world_of_one(tmp_path, (1, 1), ("data", "model")) as mesh:
+            with use_rules(SINGLE_POD_RULES, mesh):
+                out, aux_ep = TLY.moe_block(mt, x, tc)
+            out, aux_ep = out.full_tensor(), aux_ep.full_tensor()
+    finally:
+        TLY._capacity_dispatch_ep = real
+    assert len(calls) == 1
+    assert torch.equal(out, plain) and torch.equal(aux_ep, aux)
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "qwen3-moe-235b-a22b"])
