@@ -303,8 +303,40 @@ them:
      record must be ``OK`` and each child exit 0 within its timeout; a
      rank's bytes, FLOPs, collective bytes and dominant term printed. No
      kernel of ``kernels/csrc`` runs here;
- 23. summary: the launches of every kernel by phase (the build, Vamana,
-     each window of phases 6-22; phase 5's comparisons and the CPU
+ 23. examples: the four scripts of ``examples_torch`` in this process
+     through their ``main`` or stages, so their launches are counted
+     (a window each): ``quickstart`` (its card-built segment's ``anns``
+     and baseline equal the same stage at ``device="cpu"`` in ids and
+     every ``IOStats`` field), ``serve_segments`` (each batch's ids and
+     stats dict equal the same coordinator's at ``fetch_impl="ref"``,
+     dists within atol 1e-4 / rtol 1e-5), ``rag_serving`` at gemma3-1b's
+     smoke configuration (each retrieval's ids, ``io`` and
+     ``tier0_hits`` equal ``fetch_impl="ref"``'s on the same queries)
+     and ``train_resume.run`` at its defaults (rwkv6's smoke
+     configuration, 24 steps, the crash at 12: the resumed run equals 24
+     straight steps bit for bit under deterministic algorithms; JAX's
+     check ``losses[-1] < losses[0]`` is printed, not held: JAX's own
+     example fails it). Then the RAG bridge at gemma3-1b's full
+     ``CONFIG`` (26 layers, d_model 1,152, vocabulary 262,144) over
+     ``clustered_vectors(100,000, 1,152)`` indexed at η = 16 KB (ε = 3:
+     a 4,708 B vertex does not fit 4 KB) with an NSG disk graph: the
+     build's seconds by stage, OR(G), ε, ρ, the tier-0 bytes, the
+     example's loop (2 x 8 prompt tokens, 12 generated, a retrieval
+     every 4) with each retrieval held to ``fetch_impl="ref"`` as above,
+     prefill and decode ms, peak memory; 64 ``query_set`` queries drawn
+     from the corpus through the same search and a wider one (Γ 128, 256
+     hops; their own window), held the same way; ``l2_tile`` at
+     d = 1,152 against ``pairwise_l2_ref`` on 4,096 sampled rows x the
+     corpus (phase 5's atol / rtol plus 4
+     sqrt(d) u (|q|^2 + |x|^2), the norm expansion's f32 rounding; the
+     kNN ids equal where the k-th gap clears the bound) and both against
+     float64; recall@4 of both query sets against the plain brute force
+     on the CPU (these comparisons not counted); then
+     ``train_resume.run`` at rwkv6-1.6b's published widths cut to 2
+     layers, held bit for bit as above, with its step ms and
+     its checkpoints' seconds and bytes;
+ 24. summary: the launches of every kernel by phase (the build, Vamana,
+     each window of phases 6-23; phase 5's comparisons and the CPU
      comparisons and timings of phases 13, 15 and 16 are not counted)
      and in total; one JSON line of the kernels with the totals, the card
      line, and last ``{"ok": true, "device": {...}}``.
@@ -322,7 +354,9 @@ configurations of the three models, 2 x 128 tokens, without the
 card-against-CPU check; phase 21 trains them, with the full
 configurations' remat and accumulation, on 4 x 128 tokens, and holds the
 CPU against itself; phase 22 serves moonshot's smoke configuration on a
-one-rank gloo group, its f32 checks against the CPU itself).
+one-rank gloo group, its f32 checks against the CPU itself; phase 23
+runs the four examples at their sizes and the RAG bridge and the resume
+at the smoke widths).
 """
 from __future__ import annotations
 
@@ -346,6 +380,14 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
+
+# the examples' helpers: nvidia-smi's name and power limit, a device sync
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "examples_torch"))
+try:
+    from _card import device_line, sync  # noqa: E402
+except ImportError:                  # not a checkout: main() says so
+    device_line = sync = None
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
@@ -416,6 +458,14 @@ DRYRUN_CELLS = (("--arch", "gemma3-1b", "--shape", "decode_32k", "--mesh",
                  "--mesh", "single"),
                 ("--starling",))
 DRYRUN_TIMEOUT_S = 400               # each dry-run child
+EX_STEPS, EX_CRASH = 24, 12          # phase 23: train_resume's defaults
+EX_GEN, EX_EVERY = 12, 4             # phase 23: rag_serving's defaults
+EX_RAG_N = 100_000                   # phase 23: the full-width corpus
+EX_RAG_BLOCK_KB = 16.0               # phase 23: ε = 3 at d_model 1,152
+EX_TRAIN_LAYERS = 2                  # phase 23: rwkv6-1.6b's depth cut
+EX_RAG_QUERIES = 64                  # phase 23: queries from the corpus
+EX_RAG_WIDE = 128, 256               # phase 23: their wider beam, hops
+L2_ROUND = 4                         # phase 23: x sqrt(d) u (|q|^2 + |x|^2)
 
 
 class SmokeFailure(Exception):
@@ -433,19 +483,6 @@ def phase(name: str):
     t0 = time.perf_counter()
     yield
     print(f"== {name}: {time.perf_counter() - t0:.3f} s", flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def time_ms(fn, device, iters: int, flush=None) -> float:
@@ -1392,6 +1429,306 @@ def lm_mesh(device, on_card: bool, card: str, seed: int) -> None:
         runs.cleanup()
 
 
+def _example(name: str):
+    """``examples_torch/<name>.py`` beside this script, as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples_torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples(device, on_card: bool, card: str, seed: int, take) -> None:
+    """Phase 23: the four examples of ``examples_torch`` in this process
+    (their launches counted), each held to the plain path or the CPU; the
+    RAG bridge at gemma3-1b's full width; ``train_resume`` at rwkv6-1.6b's
+    full width, cut depth. See the module docstring."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import CONFIGS, SMOKE_CONFIGS
+    from repro_torch.configs.starling_segment import SEGMENT_BENCH_DEVICE
+    from repro_torch.core import device_search as DS
+    from repro_torch.core import distances as D
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.data.vectors import clustered_vectors, query_set
+    from repro_torch.kernels import l2_tile as L2
+    from repro_torch.kernels import ref
+    from repro_torch.launch.train import default_optimizer, make_train_step
+    from repro_torch.models import lm as LM
+    from repro_torch.optim import adamw_init
+    QS, SS, RS, TR = (_example(n) for n in (
+        "quickstart", "serve_segments", "rag_serving", "train_resume"))
+    dev = device.type
+
+    def asdicts(stats):
+        return [dataclasses.asdict(s) for s in stats]
+
+    def against_ref(found, ds, what, params=RS.RETRIEVE):
+        """Each search in ``found`` (dicts of its queries, ids, dists, io
+        and tier0_hits) again at ``fetch_impl="ref"`` on the same queries
+        and segment: ids, io and tier0_hits equal, dists within t0_rank's
+        atol 1e-4 / rtol 1e-5. The largest |dist diff|."""
+        p = dataclasses.replace(params, fetch_impl="ref")
+        err = 0.0
+        for i, g in enumerate(found):
+            r = DS.device_anns(ds, torch.as_tensor(g["queries"],
+                                                   device=ds.device), p)
+            for f in ("ids", "io", "tier0_hits"):
+                check(np.array_equal(g[f], getattr(r, f).cpu().numpy()),
+                      f"{what}: search {i}'s {f} differ from the plain "
+                      f"round's")
+            rd = r.dists.cpu().numpy()
+            check(np.allclose(g["dists"], rd, atol=1e-4, rtol=1e-5),
+                  f"{what}: search {i}'s dists leave the plain round's")
+            err = max(err, float(np.abs(g["dists"] - rd).max()))
+        return err
+
+    def l2_at_width(corpus, kk):
+        """``l2_tile`` against ``pairwise_l2_ref`` on the build's kNN
+        chunks of ``KNN_ROWS`` sampled corpus rows against the whole
+        corpus, both also against the float64 value. Per entry the bound
+        is phase 5's atol / rtol plus ``L2_ROUND`` sqrt(d) u (|q|^2 +
+        |x|^2), u = 2^-24: the norm expansion's f32 rounding grows with
+        the squared norms and (summed in any order) sqrt(d). The kNN ids
+        (k = ``kk``) must be equal where the k-th gap exceeds both
+        entries' bounds."""
+        n, d = corpus.shape
+        xt = torch.as_tensor(corpus, device=device)
+        xd = xt.double()
+        xx = (xd ** 2).sum(1)
+        round_u = L2_ROUND * math.sqrt(d) * 2.0 ** -24
+        rows = torch.as_tensor(np.sort(np.random.default_rng(seed).choice(
+            n, min(KNN_ROWS, n), replace=False)), device=device)
+        chunk = D._row_chunk(n, device, KNN_CHUNK)
+        err = worst = rel_k = rel_p = 0.0
+        clear = same_set = 0
+        for s in range(0, rows.numel(), chunk):
+            xr = xt[rows[s:s + chunk]]
+            got, want = L2.l2_tile(xr, xt), ref.pairwise_l2_ref(xr, xt)
+            norms = xx[rows[s:s + chunk]][:, None] + xx[None]
+            exact = torch.clamp_min(norms - 2.0 * (xr.double() @ xd.T), 0.0)
+            tol = L2_ATOL + L2_RTOL * want.abs() + round_u * norms
+            diff = (got - want).abs()
+            worst = max(worst, float((diff / tol).max()))
+            check(worst <= 1.0, f"l2_tile at d {d} leaves the plain version "
+                  f"by {worst:.3f} x the bound")
+            err = max(err, float(diff.max()))
+            rel_k = max(rel_k, float(((got - exact).abs() / norms).max()))
+            rel_p = max(rel_p, float(((want - exact).abs() / norms).max()))
+            del diff, exact, norms
+            ik = D.topk_smallest(got, kk + 1)
+            ip = D.topk_smallest(want, kk + 1)
+            vp = torch.gather(want, 1, ip)
+            tp = torch.gather(tol, 1, ip)
+            del got, want, tol
+            ok = (vp[:, kk] - vp[:, kk - 1]) > tp[:, kk] + tp[:, kk - 1]
+            eq = (torch.sort(ik[:, :kk], 1).values
+                  == torch.sort(ip[:, :kk], 1).values).all(1)
+            check(bool(eq[ok].all()), f"l2_tile kNN ids at d {d} differ "
+                  f"from the plain path's where the k-th gap exceeds the "
+                  f"bound")
+            clear += int(ok.sum())
+            same_set += int(eq.sum())
+        print(f"  l2_tile at d {d} against pairwise_l2_ref: {rows.numel()} "
+              f"rows x {n}, max |diff| {err:.6g}, at most {worst:.4f} of "
+              f"the bound (atol {L2_ATOL} + rtol {L2_RTOL} + {L2_ROUND} "
+              f"sqrt(d) u (|q|^2 + |x|^2)); "
+              f"to the f64 value, relative to |q|^2 + |x|^2: kernel "
+              f"{rel_k:.3g}, plain {rel_p:.3g}; kNN (k={kk}) same id set "
+              f"{same_set}, {clear} rows with a k-th gap past the bound "
+              f"(all equal); {card}")
+
+    def straight(cfg, params, steps):
+        """``steps`` of the example's training without a crash."""
+        step_fn = make_train_step(cfg, default_optimizer())
+        pipe = TokenPipeline(cfg.vocab_size, batch=TR.BATCH, seq=TR.SEQ,
+                             seed=0)
+        opt, losses = adamw_init(params), []
+        for _ in range(steps):
+            params, opt, m = step_fn(params, opt, pipe.next_batch(cfg))
+            losses.append(float(m["loss"]))
+        return losses, params, opt
+
+    def resume(cfg, what):
+        """``TR.run`` (24 steps, the crash at 12) against 24 straight steps
+        from the same weights, bit for bit, under deterministic
+        algorithms."""
+        t0 = time.perf_counter()
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            with tempfile.TemporaryDirectory() as d:
+                a = TR.run(cfg, TR.init(cfg, device), EX_STEPS, EX_CRASH, d,
+                           device)
+            losses, params, opt = straight(cfg, TR.init(cfg, device),
+                                           EX_STEPS)
+        finally:
+            torch.use_deterministic_algorithms(was)
+        check(a["resumed_at"] == EX_CRASH,
+              f"{what}: resumed at {a['resumed_at']}")
+        same = [torch.equal(x, y) for x, y in zip(
+            _leaves((a["params"], a["opt"])), _leaves((params, opt)))]
+        check(a["losses"] == losses and all(same),
+              f"{what}: the resumed run leaves the straight one "
+              f"({same.count(False)} of {len(same)} tensors differ)")
+        ls = a["losses"]
+        print(f"  {what}: {cfg.name}, {cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}; {EX_STEPS} steps of {TR.BATCH} x {TR.SEQ}, "
+              f"the crash at {EX_CRASH}, resumed at {a['resumed_at']}: "
+              f"losses and {len(same)} tensors equal the straight run bit "
+              f"for bit (deterministic algorithms); loss {ls[0]:.4f} -> "
+              f"{ls[-1]:.4f}, the example's check losses[-1] < losses[0] "
+              f"{'holds' if ls[-1] < ls[0] else 'fails'}; step ms median "
+              f"{np.median(a['step_ms']):.3f}; checkpoints "
+              f"{[(round(t, 3), b) for t, b in a['saves']]} (s, bytes), "
+              f"restore {a['restore_s']:.3f} s; "
+              f"{time.perf_counter() - t0:.3f} s; {card}")
+
+    # 1. the four examples at their JAX sizes
+    t0 = time.perf_counter()
+    r = QS.main(["--device", dev])
+    c = QS.search(r["seg"], r["x"], r["q"], r["truth"], "cpu")
+    for kind in ("", "base_"):
+        check(np.array_equal(r[kind + "ids"], c[kind + "ids"])
+              and asdicts(r[kind + "stats"]) == asdicts(c[kind + "stats"]),
+              f"quickstart: {kind or 'starling '}ids or IOStats on the card "
+              f"differ from device='cpu'")
+    print(f"  quickstart: the card-built segment's anns and baseline equal "
+          f"device='cpu' in ids and every IOStats field ({len(r['q'])} "
+          f"queries); range AP {r['ap']:.3f} (cpu {c['ap']:.3f}); "
+          f"{time.perf_counter() - t0:.3f} s; {card}")
+    del r, c
+    take("23 quickstart")
+
+    t0 = time.perf_counter()
+    s = SS.main(["--device", dev])
+    ref_s = SS.serve(SS.make_servers(s["segs"], device, fetch_impl="ref"),
+                     s["queries"])
+    err = 0.0
+    for a, b in zip(s["batches"], ref_s["batches"]):
+        check(np.array_equal(a["ids"], b["ids"]),
+              "serve_segments: ids differ from the plain round's")
+        check(a["stats"] == b["stats"], f"serve_segments: stats "
+              f"{a['stats']} differ from the plain round's {b['stats']}")
+        check(np.allclose(a["dists"], b["dists"], atol=1e-4, rtol=1e-5),
+              "serve_segments: dists leave the plain round's")
+        err = max(err, float(np.abs(a["dists"] - b["dists"]).max()))
+    print(f"  serve_segments: {len(s['batches'])} batches equal the plain "
+          f"round's in ids and stats, dists within {err:.3g}; recall@10 "
+          f"{s['recall']:.3f}; {time.perf_counter() - t0:.3f} s; {card}")
+    del s, ref_s
+    take("23 serve_segments")
+
+    t0 = time.perf_counter()
+    g = RS.main(["--device", dev])
+    err = against_ref(g["retrievals"], g["ds"], "rag_serving")
+    print(f"  rag_serving: {len(g['retrievals'])} retrievals equal the "
+          f"plain round's, dists within {err:.3g}; "
+          f"{time.perf_counter() - t0:.3f} s; {card}")
+    del g
+    take("23 rag_serving")
+
+    resume(SMOKE_CONFIGS["rwkv6-1.6b"], "train_resume")
+    take("23 train_resume")
+
+    # 2. the RAG bridge at gemma3-1b's full width (the smoke width in the
+    # CPU rehearsal)
+    t0 = time.perf_counter()
+    cfg = CONFIGS["gemma3-1b"] if on_card else SMOKE_CONFIGS["gemma3-1b"]
+    n = EX_RAG_N if on_card else 2000
+    params = dataclasses.replace(
+        SEGMENT_BENCH_DEVICE,
+        layout=dataclasses.replace(SEGMENT_BENCH_DEVICE.layout,
+                                   block_kb=EX_RAG_BLOCK_KB),
+        graph=dataclasses.replace(SEGMENT_BENCH_DEVICE.graph, algo="nsg"))
+    gamma = cfg.d_model * 4 + 4 + params.graph.max_degree * 4
+    print(f"  reductions: η {EX_RAG_BLOCK_KB} KB (a {gamma} B vertex: "
+          f"ε {4096 // gamma} at 4 KB), an NSG disk graph (Vamana's hop "
+          f"loop at n = {n})")
+    corpus = clustered_vectors(n, cfg.d_model, num_clusters=16, seed=seed)
+    t1 = time.perf_counter()
+    seg, ds = RS.index(corpus, params, device)
+    build_s = time.perf_counter() - t1
+    print(f"  corpus {n} x {cfg.d_model} ({corpus.nbytes} B f32) built in "
+          f"{build_s:.3f} s: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in seg.build_times.items())
+          + f", kNN {seg.build_info.get('knn_s', float('nan')):.3f} s; "
+          f"OR(G) {seg.overlap_ratio:.4f}, ε {seg.vecs.shape[1]}, ρ "
+          f"{seg.num_blocks}, tier-0 {DS.tier0_bytes(ds)} B; {card}")
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    lm_params = LM.init_params(cfg, torch.Generator(device=device)
+                               .manual_seed(seed), device=device)
+    out = RS.rag(cfg, lm_params, RS.make_prompt(cfg, device), ds, EX_GEN,
+                 EX_EVERY)
+    peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30 if on_card
+            else float("nan"))
+    del lm_params
+    take("23 rag full width")
+    # the same search, and a wider one, for queries drawn from the corpus
+    # (the example's queries are embedding rows, near the origin)
+    cq = query_set(corpus, EX_RAG_QUERIES, seed=seed + 1)
+    wide = dataclasses.replace(RS.RETRIEVE, candidates=EX_RAG_WIDE[0],
+                               max_hops=EX_RAG_WIDE[1])
+    near = {}
+    for name, p in (("example", RS.RETRIEVE), ("wide", wide)):
+        r = DS.device_anns(ds, torch.as_tensor(cq, device=ds.device), p)
+        near[name] = {"queries": cq, "ids": r.ids.cpu().numpy(),
+                      "dists": r.dists.cpu().numpy(),
+                      "io": r.io.cpu().numpy(),
+                      "tier0_hits": r.tier0_hits.cpu().numpy()}
+    take("23 rag corpus queries")
+    # the comparisons (not counted): the rounds against the plain round,
+    # l2_tile at this width against its plain version, the recall truth
+    # on the CPU's plain path
+    err = max(against_ref(out["retrievals"] + [near["example"]], ds,
+                          "rag at full width"),
+              against_ref([near["wide"]], ds, "rag at full width", wide))
+    l2_at_width(corpus, min(max(2 * params.graph.max_degree,
+                                params.graph.build_beam), n - 1))
+    qs = np.concatenate([g["queries"] for g in out["retrievals"]])
+    got = np.concatenate([g["ids"] for g in out["retrievals"]])
+    k = RS.RETRIEVE.k
+    truth = D.brute_force_knn(corpus, qs, k, device="cpu")
+    near_truth = D.brute_force_knn(corpus, cq, k, device="cpu")
+    K.reset_all_launches()
+    print(f"  rag at full width: {cfg.name}, {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, params "
+          f"{cfg.param_dtype}, compute {cfg.dtype}; {RS.BATCH} x "
+          f"{RS.PROMPT_LEN} prompt tokens, {EX_GEN} generated, a retrieval "
+          f"every {EX_EVERY}: {len(out['retrievals'])} retrievals and "
+          f"{len(cq)} corpus queries at two beams equal the plain round's "
+          f"(ids, io, tier0_hits), dists within {err:.3g}; recall@{k} "
+          f"against the plain brute force: the example's queries "
+          f"{recall(got, truth):.4f}; {len(cq)} queries drawn from the "
+          f"corpus " + ", ".join(
+              f"at Γ {p.candidates} / {p.max_hops} hops "
+              f"{recall(near[name]['ids'], near_truth):.4f} (their nearest "
+              f"found {recall(near[name]['ids'], near_truth[:, :1]):.4f})"
+              for name, p in (("example", RS.RETRIEVE), ("wide", wide)))
+          + f"; prefill "
+          f"{out['prefill_ms']:.3f} ms, decode median "
+          f"{np.median(out['decode_ms']):.3f} ms a step "
+          f"({[round(v, 3) for v in out['decode_ms']]}); peak "
+          f"{peak:.3f} GiB; {time.perf_counter() - t0:.3f} s; {card}")
+    del out, corpus, seg, ds
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 3. train_resume at rwkv6-1.6b's published widths, 2 layers (the
+    # smoke width with the full configuration's remat and accumulation in
+    # the CPU rehearsal)
+    full = CONFIGS["rwkv6-1.6b"]
+    cfg = (dataclasses.replace(full, num_layers=EX_TRAIN_LAYERS) if on_card
+           else dataclasses.replace(SMOKE_CONFIGS["rwkv6-1.6b"],
+                                    remat=full.remat,
+                                    grad_accum=full.grad_accum))
+    resume(cfg, "train_resume at full width")
+    take("23 train full width")
+
+
 def _leaves(tree):
     """The tensors of a tree, dict keys sorted (as the port flattens)."""
     if isinstance(tree, dict):
@@ -1502,7 +1839,7 @@ def main() -> int:
         return got
 
     with phase("1 card"):
-        card = card_line() if on_card else "cpu rehearsal"
+        card = device_line(device) if on_card else "cpu rehearsal"
         print(f"card: {card}")
         if on_card:
             print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3641,6 +3978,9 @@ def main() -> int:
     with phase("22 lm mesh"):
         lm_mesh(device, on_card, card, args.seed)
         take("22 lm mesh")
+
+    with phase("23 examples"):
+        examples(device, on_card, card, args.seed, take)
 
     total = {name: sum(c[name] for c in by_phase.values())
              for name in KERNELS}

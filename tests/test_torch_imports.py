@@ -1,14 +1,15 @@
-"""The port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the JAX package
-``repro`` (the port keeps its own copies of what it needs)."""
+"""The port stands alone: no file of ``src/repro_torch``, of
+``examples_torch`` and not ``chip_smoke.py`` imports ``jax`` or anything
+of the JAX package ``repro`` (the port keeps its own copies of what it
+needs)."""
 import ast
 import pathlib
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -51,6 +52,9 @@ def test_port_has_files():
                  "moonshot_16b", "qwen3_moe_235b", "rwkv6_1p6b",
                  "stablelm_3b", "whisper_base", "zamba2_1p2b"):
         assert pkg / "configs" / f"{arch}.py" in FILES
+    for example in ("quickstart", "serve_segments", "rag_serving",
+                    "train_resume"):
+        assert ROOT / "examples_torch" / f"{example}.py" in FILES
 
 
 # names of a JAX package's namespace the port does not export: TPU-only
