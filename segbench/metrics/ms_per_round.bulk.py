@@ -1,0 +1,3 @@
+"""The `ms_per_round.bulk` metric in `bigann-4x250k.bulk`
+(`segbench.reduce.ms_per_round`)."""
+from segbench.reduce import ms_per_round as read  # noqa: F401
