@@ -21,6 +21,16 @@ Differences from the JAX loop, none of which changes a result:
     on the CPU); bits are set in place, query by query as in JAX;
   * indices are int64 where torch needs them, and every index JAX
     clamps is clamped.
+
+With a tracer (``device_anns(..., tracer=)``, an ``obs.Tracer``) a
+segment search records, on the ``search`` track: ``search.prologue``
+(``initial_state``); one ``search.round`` a round, whose args hold ``t``,
+``fired`` and ``phases``, the end of each of its ``ROUND_PHASES`` in
+order (one clock read each; a phase runs from the end of the one before,
+the first from the round's start); and a
+``sync.<site>`` span around each blocking read of a device value
+(``HostSyncs``). The spans add no launch and no read; without a tracer a
+phase's end costs one call that does nothing.
 """
 from __future__ import annotations
 
@@ -44,6 +54,82 @@ _ROUND_LOG_COLS = ("live", "cold", "tier0", "joins", "joins_x",
                    "compacted", "spec_hits", "spec_wasted")
 
 _INF = float("inf")
+
+SEARCH_TRACK = "search"          # the obs track of the search spans
+# the phases of a round, in the loop's order
+ROUND_PHASES = ("round.compact", "round.pick", "round.stage",
+                "round.account", "round.fold", "round.expand",
+                "round.route", "round.merge")
+
+
+class HostSyncs:
+    """The one way the search path reads a device value on the host.
+
+    ``read(site, convert, x)`` returns ``convert(x)`` (``bool``,
+    ``float``, ``to_numpy``), a blocking read that waits for every
+    launch queued before it, and counts it in ``count``; with a tracer
+    it records a ``sync.<site>`` span around the read, whose duration
+    is the time the host waited on the card."""
+
+    __slots__ = ("tracer", "count")
+
+    def __init__(self, tracer=None):
+        self.tracer = tracer
+        self.count = 0
+
+    def read(self, site: str, convert, x):
+        self.count += 1
+        if self.tracer is None:
+            return convert(x)
+        now = self.tracer.clock.now_us
+        t0 = now()
+        v = convert(x)
+        self.tracer.slice("sync." + site, t0, now() - t0, cat="search",
+                          track=SEARCH_TRACK)
+        return v
+
+
+class RoundSpans:
+    """The ``search.round`` spans of one loop: ``start`` and each
+    phase's ``end`` read the clock once, ``close`` records the round
+    with its phase ends in ``args["phases"]``."""
+
+    __slots__ = ("tracer", "now", "t0", "ends")
+
+    def __init__(self, tracer):
+        self.tracer, self.now = tracer, tracer.clock.now_us
+
+    def start(self) -> None:
+        self.ends = []
+        self.t0 = self.now()
+
+    def end(self) -> None:
+        self.ends.append(self.now())
+
+    def close(self, t: int, fired: bool) -> None:
+        self.tracer.slice("search.round", self.t0, self.ends[-1] - self.t0,
+                          cat="search", track=SEARCH_TRACK, t=t,
+                          fired=fired, phases=tuple(self.ends))
+
+
+class _NoRoundSpans:
+    __slots__ = ()
+
+    def start(self) -> None:
+        pass
+
+    def end(self) -> None:
+        pass
+
+    def close(self, t: int, fired: bool) -> None:
+        pass
+
+
+_NO_ROUND_SPANS = _NoRoundSpans()
+
+
+def to_numpy(x: torch.Tensor) -> np.ndarray:
+    return x.cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -96,6 +182,7 @@ class DeviceSearchResult(NamedTuple):
     spec_wasted: torch.Tensor   # [Q] (speculate) unconsumed predictions
     rounds: int                 # loop rounds the batch ran
     round_log: Optional[torch.Tensor] = None   # [max_hops, 8] i32
+    syncs: int = 0              # the loop's blocking reads (HostSyncs)
 
 
 class DeviceRangeResult(NamedTuple):
@@ -412,16 +499,21 @@ def _block_search_loop(ds: DeviceSegment, queries: torch.Tensor, lut,
                        fetch_width: int, fetch_impl: str,
                        compact_frac: float = 0.0, trace: bool = False,
                        pipeline_dma: bool = False, round_tile_cap: int = 0,
-                       speculate: bool = False, fuse_union: bool = False):
+                       speculate: bool = False, fuse_union: bool = False,
+                       tracer=None):
     """The batched best-first block search from a carried state.
 
     ``state`` = dict with cand_id, cand_key, open_key, visited, res_id,
-    res_key, io, t0, hops, saved, saved_x (per query) and t. Returns
-    ``(state, round_log)``; see ``repro.core.device_search.
+    res_key, io, t0, hops, saved, saved_x (per query), t and syncs (host
+    ints). Returns ``(state, round_log)``; see ``repro.core.device_search.
     _block_search_loop`` for the meaning of every knob. The round log
     is None when ``trace`` is off; results and counters are the same
     for every setting of ``compact_frac``, ``trace``, ``speculate``,
-    ``pipeline_dma`` and ``fuse_union``."""
+    ``pipeline_dma``, ``fuse_union`` and ``tracer`` (an ``obs.Tracer``:
+    the ``search.round`` and ``sync.*`` spans). ``syncs`` grows by the
+    loop's blocking reads: a loop test a round and one more that ends
+    the loop (none when it stops at ``max_hops``), and with compaction
+    two tests a round (one when the batch has a single query)."""
     qn = queries.shape[0]
     dev = queries.device
     eps = ds.vid.shape[1]
@@ -446,15 +538,20 @@ def _block_search_loop(ds: DeviceSegment, queries: torch.Tensor, lut,
                         device=dev) if trace else None)
     ar_fw = torch.arange(fw, device=dev)
 
-    while st["t"] < max_hops and bool(torch.isfinite(st["open_key"]).any()):
+    reads = HostSyncs(tracer)
+    rnd = RoundSpans(tracer) if tracer is not None else _NO_ROUND_SPANS
+    while st["t"] < max_hops and reads.read(
+            "loop", bool, torch.isfinite(st["open_key"]).any()):
         t = st["t"]
+        rnd.start()
         # --- active mask + optional live-query compaction
         live = torch.isfinite(st["open_key"]).any(dim=1)     # [Q]
         fired = False
         if compact:
-            frac = float(live.to(torch.float32).mean())
-            unpacked = (qn > 1
-                        and bool((~live[:-1] & live[1:]).any()))
+            frac = reads.read("compact", float,
+                              live.to(torch.float32).mean())
+            unpacked = (qn > 1 and reads.read(
+                "compact", bool, (~live[:-1] & live[1:]).any()))
             fired = frac < compact_frac and unpacked
             if fired:
                 # stable: live first, original order within each group
@@ -466,16 +563,19 @@ def _block_search_loop(ds: DeviceSegment, queries: torch.Tensor, lut,
             q_r, lut_r = queries, lut
         cand_id, open_key = st["cand_id"], st["open_key"]
         visited = st["visited"]
+        rnd.end()                                            # round.compact
 
         # --- pick the F best open candidates per query
         u, f_active = pick_candidates(cand_id, open_key, fw)
         active = f_active[:, 0]
         b = ds.block_of[u.long().clamp_min(0)]               # [Q, F]
+        rnd.end()                                            # round.pick
 
         # --- round stage: tier-0 probe, batch union + gather, rank
         vid, nbrs, dd, hit, order = _round_stage(
             ds, q_r, u, metric, fetch_impl, n_expand, tile, pipeline_dma,
             fuse_union)
+        rnd.end()                                            # round.stage
         hot = hit.to(torch.bool) & f_active
         cold = f_active & ~hot
         joined, joined_x = _dedup_joins(b, cold, tile)       # [Q, F]
@@ -507,6 +607,7 @@ def _block_search_loop(ds: DeviceSegment, queries: torch.Tensor, lut,
                 _i32sum(joined), _i32sum(joined_x),
                 torch.tensor(int(fired), dtype=torch.int32, device=dev),
                 *spec_cols])
+        rnd.end()                                            # round.account
 
         # --- fold the exact-ranked residents into the results
         f_valid = torch.repeat_interleave(f_active, eps, dim=1)
@@ -515,6 +616,7 @@ def _block_search_loop(ds: DeviceSegment, queries: torch.Tensor, lut,
         st["res_key"], st["res_id"] = _merge_top(
             st["res_key"], st["res_id"], dd_m,
             vid.masked_fill(~slot_valid, -1), res_size)
+        rnd.end()                                            # round.fold
 
         # --- block pruning: targets + top-((eps-1)*sigma), in the
         # expansion order the round stage ranked
@@ -527,6 +629,7 @@ def _block_search_loop(ds: DeviceSegment, queries: torch.Tensor, lut,
         ex_new = ex_valid & ~_bit_get(visited, ex_id.clamp_min(0))
         for j in range(n_expand):                            # mark expanded
             _bit_set(visited, ex_id[:, j].clamp_min(0), ex_new[:, j])
+        rnd.end()                                            # round.expand
 
         # --- collect neighbours of expanded slots, route by PQ
         ex_nbrs = torch.gather(
@@ -555,16 +658,20 @@ def _block_search_loop(ds: DeviceSegment, queries: torch.Tensor, lut,
                    & (ar_fw[None, :, None] > ar_fw[None, None, :])).any(-1)
             st["spec_blk"] = p_blk.masked_fill(dup & (p_blk >= 0),
                                                -1).to(torch.int32)
+        rnd.end()                                            # round.route
 
         st["cand_key"], st["cand_id"] = _merge_top(
             st["cand_key"], cand_id, f_key, f_id, candidates)
         st["open_key"] = _open_keys(st["cand_id"], st["cand_key"], visited)
+        rnd.end()                                            # round.merge
+        rnd.close(t, fired)
         st["t"] = t + 1
 
     if compact:
         inv = torch.argsort(st["perm"].long())   # undo the compaction
         for name in per_query:
             st[name] = st[name][inv]
+    st["syncs"] = st["syncs"] + reads.count
     return st, rlog
 
 
@@ -614,21 +721,30 @@ def initial_state(ds: DeviceSegment, queries: torch.Tensor,
                                   device=dev),
              "res_key": torch.full((qn, res_size), _INF, device=dev),
              "io": zeros(), "t0": zeros(), "hops": zeros(),
-             "saved": zeros(), "saved_x": zeros(), "t": 0}
+             "saved": zeros(), "saved_x": zeros(), "t": 0, "syncs": 0}
     return queries, lut, state
 
 
 def device_anns(ds: DeviceSegment, queries: torch.Tensor,
                 p: DeviceSearchParams = DEFAULT_DEVICE_SEARCH,
                 metric: str = "l2",
-                seeds: Optional[torch.Tensor] = None) -> DeviceSearchResult:
+                seeds: Optional[torch.Tensor] = None,
+                tracer=None) -> DeviceSearchResult:
     """Batched Starling ANNS on one segment.
 
     ``seeds`` [Q, S] int32 (-1 padded) replaces the navigation-graph
     entry pick (the hybrid path hands its exit frontier here).
     ``queries`` must lie on the segment's device. Returns per-query
-    ids/dists [Q, k] and counters (see ``DeviceSearchResult``)."""
-    queries, lut, state = initial_state(ds, queries, p, metric, seeds)
+    ids/dists [Q, k] and counters (see ``DeviceSearchResult``).
+    ``tracer`` (an ``obs.Tracer``) records ``search.prologue`` and the
+    loop's spans; it changes no result."""
+    if tracer is None:
+        queries, lut, state = initial_state(ds, queries, p, metric, seeds)
+    else:
+        with tracer.span("search.prologue", cat="search",
+                         track=SEARCH_TRACK):
+            queries, lut, state = initial_state(ds, queries, p, metric,
+                                                seeds)
     res_size = state["res_id"].shape[1]
     fw = max(p.fetch_width, 1)
     st, rlog = _block_search_loop(
@@ -637,13 +753,14 @@ def device_anns(ds: DeviceSegment, queries: torch.Tensor,
         metric=metric, fetch_width=fw, fetch_impl=p.fetch_impl,
         compact_frac=p.compact_frac, trace=p.trace_rounds,
         pipeline_dma=p.pipeline_dma, round_tile_cap=p.round_tile_cap,
-        speculate=p.speculate, fuse_union=p.fuse_union)
+        speculate=p.speculate, fuse_union=p.fuse_union, tracer=tracer)
     zeros = torch.zeros_like(st["io"])
     spec_h = st["spec_h"] if p.speculate else zeros
     spec_w = st["spec_w"] if p.speculate else zeros
     return DeviceSearchResult(st["res_id"][:, : p.k], st["res_key"][:, : p.k],
                               st["io"], st["hops"], st["t0"], st["saved"],
-                              st["saved_x"], spec_h, spec_w, st["t"], rlog)
+                              st["saved_x"], spec_h, spec_w, st["t"], rlog,
+                              st["syncs"])
 
 
 # ---------------------------------------------------------- range search
@@ -704,7 +821,7 @@ def device_range_search(ds: DeviceSegment, queries: torch.Tensor,
                  "open_key": _open_keys(cand_id, cand_key, visited),
                  "visited": visited, "res_id": r_id, "res_key": r_key,
                  "io": io, "t0": t0, "hops": hops, "saved": saved,
-                 "saved_x": saved_x, "t": 0}
+                 "saved_x": saved_x, "t": 0, "syncs": 0}
         # the round log stays off: the loop re-enters each round
         st, _ = _block_search_loop(
             ds, queries, lut, state, res_size=res_size, candidates=c,

@@ -4,9 +4,11 @@
 Every timestamp ``repro_torch.obs`` records comes from a ``Clock`` so the same
 tracing code is deterministic in tests and wall-clock in benches:
 
-  * ``WallClock`` — monotonic wall time (``time.perf_counter_ns``), the
-    bench/serving default; the only place the port reads real time for
-    observability purposes.
+  * ``WallClock`` — monotonic wall time on the Unix epoch (µs since
+    1970, ``time.perf_counter_ns`` plus an epoch offset read once), the
+    bench/serving default and the time base of ``torch.profiler``'s
+    events, so spans lay over a device trace as they are; the only
+    place the port reads real time for observability purposes.
   * ``ManualClock`` — a counter advanced explicitly by the test; spans
     get exact, reproducible durations, so trace goldens are stable.
 
@@ -21,10 +23,17 @@ import time
 
 
 class WallClock:
-    """Monotonic wall time in microseconds."""
+    """Monotonic wall time in microseconds since the Unix epoch.
+
+    The offset from ``perf_counter`` to the epoch is read once, when the
+    clock is made: later readings move with ``perf_counter`` alone, so a
+    step of the system clock (NTP) never makes a span run backwards."""
+
+    def __init__(self):
+        self._epoch_ns = time.time_ns() - time.perf_counter_ns()
 
     def now_us(self) -> float:
-        return time.perf_counter_ns() / 1e3
+        return (time.perf_counter_ns() + self._epoch_ns) / 1e3
 
 
 class ManualClock:

@@ -17,8 +17,17 @@ identical with tracing on or off (asserted in tests).
 Naming conventions (DESIGN.md §6): event names are dotted
 ``plane.what`` — ``coord.batch``, ``coord.segment``, ``host.search``,
 ``io.read``, ``io.fetch_submit``, ``io.fetch_complete``,
-``sched.eval``, ``sched.repack``, ``device.round``. Categories group
-planes: ``serve`` | ``io`` | ``sched`` | ``device``.
+``sched.eval``, ``sched.repack``, ``device.round``, and the port's
+segment search below ``coord.segment`` (``core.device_search``):
+``search.prologue``, ``search.round`` (its args hold the ends of its
+phases ``round.compact``, ``round.pick``, ``round.stage``,
+``round.account``, ``round.fold``, ``round.expand``, ``round.route`` and
+``round.merge``, one clock read each), ``search.readback``, and
+``sync.loop``, ``sync.compact``, ``sync.readback`` around each blocking
+read of a device value. Categories group planes: ``serve`` | ``io`` |
+``sched`` | ``device`` | ``search``. With a ``WallClock`` the timestamps
+are µs since the Unix epoch, the time base of ``torch.profiler``'s
+events.
 """
 from __future__ import annotations
 

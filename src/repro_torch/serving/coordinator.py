@@ -20,8 +20,17 @@ With a tracer and a metrics registry (``QueryCoordinator(tracer=,
 metrics=)``, wired into every target through ``attach_obs``), a batch
 records ``coord.batch`` and ``coord.segment`` spans, a host server its
 ``host.search`` span, and the stats dict is republished as ``serve.*``
-metrics (``obs``). A span measures host time: ``search`` returns numpy,
-so a span closes after the result reached the host.
+metrics (``obs``). Below ``coord.segment`` a device server records its
+segment search (``core.device_search``) with the coordinator's tracer,
+which the coordinator passes to ``SegmentServer.search`` on every batch
+(so setting ``QueryCoordinator.tracer`` is the one switch):
+``search.prologue``, one ``search.round`` a round with its phases' ends
+(``round.compact`` ... ``round.merge``), ``search.readback`` around the
+copies of the results to the host (arg ``syncs``, the search's
+``batch_stats()["syncs"]``), and a ``sync.<site>`` span around every
+blocking read (``sync.loop``, ``sync.compact``, ``sync.readback``). A
+span measures host time: ``search`` returns numpy, so a span closes
+after the result reached the host.
 """
 from __future__ import annotations
 
@@ -31,8 +40,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.device_search import (DeviceSegment, device_anns,
-                                            repack_tier0)
+from repro_torch.core.device_search import (SEARCH_TRACK, DeviceSegment,
+                                            HostSyncs, device_anns,
+                                            repack_tier0, to_numpy)
 from repro_torch.configs.starling_segment import DEVICE_SEARCH_BATCH
 from repro_torch.core.params import DeviceSearchParams, SearchParams
 from repro_torch.core.search import SegmentView, anns
@@ -79,7 +89,14 @@ class SegmentServer:
     entries at a narrowed cold Γ, and the answers merge by ``(dist,
     id)`` with ``tombstones`` [num_vectors] bool masked from the cold
     side (the hot tier masks its own); the hot tier's visits land in the
-    ``hot_tier_hits`` batch column."""
+    ``hot_tier_hits`` batch column.
+
+    ``search(..., tracer=)`` records the segment search's spans; the
+    batch's ``syncs`` count every blocking read of a device value, with a
+    tracer or without: per segment search of R rounds, R + 1 loop tests
+    (R when it stops at ``max_hops``), 2R compaction tests with
+    ``compact_frac`` > 0 (R for a one-query batch) and nine copies of
+    the results (ten with ``trace_rounds``)."""
     segment: DeviceSegment
     offset: int                   # base of this segment's id space
     num_vectors: int
@@ -94,9 +111,10 @@ class SegmentServer:
     def __post_init__(self):
         self.segment = self.segment.to(torch.device(self.device))
 
-    def search(self, queries: np.ndarray, k: Optional[int] = None
-               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """queries [Q, D] -> (ids [Q, k], dists [Q, k], io [Q])."""
+    def search(self, queries: np.ndarray, k: Optional[int] = None,
+               tracer=None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """queries [Q, D] -> (ids [Q, k], dists [Q, k], io [Q]);
+        ``tracer`` (an ``obs.Tracer``) records the search's spans."""
         k = k or self.k_default
         queries = np.ascontiguousarray(queries, np.float32)
         n_dead = (int(self.tombstones.sum())
@@ -126,18 +144,15 @@ class SegmentServer:
         # a per-request k above the configured beam widens Γ with it
         p = dataclasses.replace(self.params, k=k_cold,
                                 candidates=max(candidates, k_cold))
-        r = device_anns(self.segment, q, p, metric=self.metric, seeds=seeds)
-        self.last_io = r.io.cpu().numpy()
-        self.last_tier0_hits = r.tier0_hits.cpu().numpy()
-        self.last_hops = r.hops.cpu().numpy()
-        self.last_dedup_saved = r.dedup_saved.cpu().numpy()
-        self.last_dedup_cross = r.dedup_cross.cpu().numpy()
-        self.last_spec_hits = r.spec_hits.cpu().numpy()
-        self.last_spec_wasted = r.spec_wasted.cpu().numpy()
-        self.last_rounds = int(r.rounds)
-        self.last_round_log = (r.round_log.cpu().numpy()
-                               if r.round_log is not None else None)
-        cold_ids, cold_dists = r.ids.cpu().numpy(), r.dists.cpu().numpy()
+        r = device_anns(self.segment, q, p, metric=self.metric, seeds=seeds,
+                        tracer=tracer)
+        if tracer is None:
+            cold_ids, cold_dists = self._read_back(r, HostSyncs())
+        else:
+            with tracer.span("search.readback", cat="search",
+                             track=SEARCH_TRACK) as sp:
+                cold_ids, cold_dists = self._read_back(r, HostSyncs(tracer))
+                sp["syncs"] = self.last_syncs
         if route is None:
             self.last_hot_tier_hits = np.zeros(q.shape[0], np.int64)
             return cold_ids, cold_dists, self.last_io
@@ -154,6 +169,26 @@ class SegmentServer:
             out_i[qi], out_d[qi] = merge_hot_cold(
                 k, route.ids[qi], route.dists[qi], ci[qi], cd[qi])
         return out_i, out_d, self.last_io
+
+    def _read_back(self, r, reads: HostSyncs):
+        """Copy the search's results and counters to the host, each copy
+        through ``reads``; sets the ``last_*`` columns, returns (ids,
+        dists)."""
+        def host(t):
+            return reads.read("readback", to_numpy, t)
+        self.last_io = host(r.io)
+        self.last_tier0_hits = host(r.tier0_hits)
+        self.last_hops = host(r.hops)
+        self.last_dedup_saved = host(r.dedup_saved)
+        self.last_dedup_cross = host(r.dedup_cross)
+        self.last_spec_hits = host(r.spec_hits)
+        self.last_spec_wasted = host(r.spec_wasted)
+        self.last_rounds = int(r.rounds)
+        self.last_round_log = (host(r.round_log)
+                               if r.round_log is not None else None)
+        out = host(r.ids), host(r.dists)
+        self.last_syncs = r.syncs + reads.count
+        return out
 
     def repack(self, observed, plan=None) -> int:
         """Swap the tier-0 pack for one re-ranked by ``observed``
@@ -182,6 +217,7 @@ class SegmentServer:
                 "spec_wasted": self.last_spec_wasted,
                 "hot_tier_hits": self.last_hot_tier_hits,
                 "rounds": self.last_rounds,
+                "syncs": self.last_syncs,
                 "dma_pipelined": (self.params.pipeline_dma
                                   and self.params.fetch_impl == "fused"),
                 "dma_speculative": self.params.speculate}
@@ -379,7 +415,10 @@ class QueryCoordinator:
                 with self.tracer.span("coord.segment", cat="serve",
                                       track="coord",
                                       target=f"seg{s.offset}") as sp:
-                    i, d, io = s.search(queries, k)
+                    if isinstance(s, SegmentServer):  # its search's spans
+                        i, d, io = s.search(queries, k, tracer=self.tracer)
+                    else:
+                        i, d, io = s.search(queries, k)
                     sp["block_reads"] = int(io.sum())
             else:
                 i, d, io = s.search(queries, k)

@@ -195,7 +195,8 @@ def test_hybrid_server_with_tombstones_matches_jax(setup):
     np.testing.assert_array_equal(tio, jio)
     assert not np.isin(ti, victims).any()
     jst, tst = js.batch_stats(), ts.batch_stats()
-    assert set(tst) == set(jst)
+    # the port's one key more: its blocking reads of device values
+    assert set(tst) == set(jst) | {"syncs"}
     for name, v in jst.items():
         if isinstance(v, np.ndarray):
             np.testing.assert_array_equal(tst[name], v, err_msg=name)
