@@ -3472,27 +3472,42 @@ def main() -> int:
             if traced:
                 fsrv.attach_obs(tr, reg)
                 hyb_o.attach_obs(tr, reg)
-            out, logs = [], []
+            out, logs, ran = [], [], []
+
+            def columns(bs):
+                # how the rounds ran is checked on its own: the rounds
+                # replayed from the round graphs, and the blocking reads
+                # (the round log is one copy more)
+                ran.append((bs["graph_rounds"], bs["syncs"]))
+                return {k_: np.asarray(v).tolist() for k_, v in bs.items()
+                        if k_ not in ("graph_rounds", "syncs")}
             for qb in obs_b:
                 fi, fd, _ = fsrv.search(feed_q)
                 gi, gd, st = crd.search(qb, k=10)
                 bs = dsrv.batch_stats()
                 if traced:
                     logs.append((dsrv.last_round_log, bs["rounds"]))
-                out.append((gi, gd, st, {k_: np.asarray(v).tolist()
-                                         for k_, v in bs.items()},
+                out.append((gi, gd, st, columns(bs),
                             fi, fd, [dataclasses.asdict(s_)
                                      for s_ in fsrv.last_stats]))
             hi, hd, _ = hyb_o.search(obs_b[0], 10)
-            out.append((hi, hd, {k_: np.asarray(v).tolist() for k_, v
-                                 in hyb_o.batch_stats().items()},
+            out.append((hi, hd, columns(hyb_o.batch_stats()),
                         fsrv.cache_stats(), sch.stats()))
-            return out, crd, tr, reg, logs
+            return out, crd, tr, reg, logs, ran
 
-        plain_out, plain_crd, _, _, _ = obs_run(False)
+        plain_out, plain_crd, _, _, _, plain_ran = obs_run(False)
         take("17 untraced")
-        trac_out, trac_crd, tr, reg, logs = obs_run(True)
+        trac_out, trac_crd, tr, reg, logs, trac_ran = obs_run(True)
         traced = take("17 traced")
+        # the round log runs the traced plane's rounds eagerly and reads
+        # itself back once more; the untraced plane replays its rounds
+        # from the round graphs on the card, and none on the CPU
+        check(all(g_ == 0 and s_ == ps_ + 1 and (pg_ > 0) == on_card
+                  for (g_, s_), (pg_, ps_) in zip(trac_ran[:-1],
+                                                  plain_ran[:-1]))
+              and trac_ran[-1][1] == plain_ran[-1][1],
+              f"(rounds replayed, reads) a batch: traced {trac_ran}, "
+              f"untraced {plain_ran}")
         for i, (a, b_) in enumerate(zip(trac_out[:-1], plain_out[:-1])):
             check(np.array_equal(a[0], b_[0]) and np.array_equal(a[1], b_[1])
                   and a[2] == b_[2] and a[3] == b_[3]

@@ -20,21 +20,37 @@ Differences from the JAX loop, none of which changes a result:
   * the visited bitmask holds int32 words (torch's uint32 lacks shifts
     on the CPU); bits are set in place, query by query as in JAX;
   * indices are int64 where torch needs them, and every index JAX
-    clamps is clamped.
+    clamps is clamped;
+  * on a CUDA device with ``fetch_impl='fused'`` (and no round log),
+    a round's phases after its stage, ``round.account`` to
+    ``round.merge``, are one CUDA graph replayed once a round, and its
+    ``round.pick`` another, over static buffers of the batch's state
+    (``_RoundGraph``, kept in a small LRU by the batch's shapes, the
+    knobs that shape a round and the segment's arrays, captured when a
+    key is first seen). The loop test, the compaction and the round
+    stage stay eager: the stage gets a copy of the picked ids, and its
+    outputs are copied into the graph's inputs. The same kernels run
+    in the same order, so every result is bit-identical. Under the
+    graph the four phases before ``round.merge`` end at once and
+    ``round.merge`` holds the replay; on the CPU every round is eager.
 
 With a tracer (``device_anns(..., tracer=)``, an ``obs.Tracer``) a
 segment search records, on the ``search`` track: ``search.prologue``
 (``initial_state``); one ``search.round`` a round, whose args hold ``t``,
-``fired`` and ``phases``, the end of each of its ``ROUND_PHASES`` in
-order (one clock read each; a phase runs from the end of the one before,
-the first from the round's start); and a
+``fired``, ``graph`` (the round was replayed from a graph) and
+``phases``, the end of each of its ``ROUND_PHASES`` in order (one clock
+read each; a phase runs from the end of the one before, the first from
+the round's start); and a
 ``sync.<site>`` span around each blocking read of a device value
 (``HostSyncs``). The spans add no launch and no read; without a tracer a
 phase's end costs one call that does nothing.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -92,7 +108,8 @@ class HostSyncs:
 class RoundSpans:
     """The ``search.round`` spans of one loop: ``start`` and each
     phase's ``end`` read the clock once, ``close`` records the round
-    with its phase ends in ``args["phases"]``."""
+    with its phase ends in ``args["phases"]`` and whether its post-stage
+    phases were replayed from a CUDA graph in ``args["graph"]``."""
 
     __slots__ = ("tracer", "now", "t0", "ends")
 
@@ -106,10 +123,10 @@ class RoundSpans:
     def end(self) -> None:
         self.ends.append(self.now())
 
-    def close(self, t: int, fired: bool) -> None:
+    def close(self, t: int, fired: bool, graph: bool = False) -> None:
         self.tracer.slice("search.round", self.t0, self.ends[-1] - self.t0,
                           cat="search", track=SEARCH_TRACK, t=t,
-                          fired=fired, phases=tuple(self.ends))
+                          fired=fired, phases=tuple(self.ends), graph=graph)
 
 
 class _NoRoundSpans:
@@ -121,7 +138,7 @@ class _NoRoundSpans:
     def end(self) -> None:
         pass
 
-    def close(self, t: int, fired: bool) -> None:
+    def close(self, t: int, fired: bool, graph: bool = False) -> None:
         pass
 
 
@@ -183,6 +200,7 @@ class DeviceSearchResult(NamedTuple):
     rounds: int                 # loop rounds the batch ran
     round_log: Optional[torch.Tensor] = None   # [max_hops, 8] i32
     syncs: int = 0              # the loop's blocking reads (HostSyncs)
+    graph_rounds: int = 0       # rounds replayed from a round graph
 
 
 class DeviceRangeResult(NamedTuple):
@@ -493,6 +511,280 @@ def pick_candidates(cand_id: torch.Tensor, open_key: torch.Tensor,
     return u, f_active
 
 
+def _pick(ds: DeviceSegment, fw: int, st: dict) -> dict:
+    """``round.pick``: the ``fw`` best open candidates of each query
+    (``u``, ``f_active``) and their blocks (``b``)."""
+    u, f_active = pick_candidates(st["cand_id"], st["open_key"], fw)
+    return {"u": u, "f_active": f_active,
+            "b": ds.block_of[u.long().clamp_min(0)]}
+
+
+def _post_stage(ds: DeviceSegment, st: dict, x: dict, rnd, *, tile: int,
+                n_expand: int, res_size: int, candidates: int,
+                speculate: bool, ar_fw: torch.Tensor, rlog=None, t: int = 0,
+                fired: bool = False) -> None:
+    """The phases of a round after its stage, ``round.account`` to
+    ``round.merge``, on the state ``st``: replaces its entries by their
+    new values and sets ``visited``'s bits in place. ``x`` holds the
+    pick's ``u``, ``f_active`` and ``b`` and the stage's ``vid``,
+    ``nbrs``, ``dd``, ``hit`` and ``order``. Ends every phase but
+    ``round.merge``, which the caller ends; ``rlog`` (the round log, or
+    None) takes row ``t``."""
+    u, f_active, b = x["u"], x["f_active"], x["b"]
+    vid, nbrs, dd, hit, order = (x["vid"], x["nbrs"], x["dd"], x["hit"],
+                                 x["order"])
+    qn = u.shape[0]
+    dev = u.device
+    eps = ds.vid.shape[1]
+    fw = u.shape[1]
+    active = f_active[:, 0]
+    cand_id, visited, lut_r = st["cand_id"], st["visited"], st["lut_r"]
+
+    hot = hit.to(torch.bool) & f_active
+    cold = f_active & ~hot
+    joined, joined_x = _dedup_joins(b, cold, tile)           # [Q, F]
+    st["io"] = st["io"] + _i32sum(cold, 1)
+    st["t0"] = st["t0"] + _i32sum(hot, 1)
+    st["saved"] = st["saved"] + _i32sum(joined, 1)
+    st["saved_x"] = st["saved_x"] + _i32sum(joined_x, 1)
+    st["hops"] = st["hops"] + active.to(torch.int32)
+
+    if speculate:
+        # consume the prediction the previous round staged
+        spec_blk = st["spec_blk"]
+        pred_match = (b[:, :, None] == spec_blk[:, None, :]).any(-1)
+        hit_spec = cold & ~joined & pred_match
+        cold_b = torch.where(cold, b, torch.full_like(b, -1))
+        used = ((spec_blk[:, :, None] == cold_b[:, None, :]).any(-1)
+                & (spec_blk >= 0))
+        sh_r = _i32sum(hit_spec, 1)
+        sw_r = _i32sum((spec_blk >= 0) & ~used, 1)
+        st["spec_h"] = st["spec_h"] + sh_r
+        st["spec_w"] = st["spec_w"] + sw_r
+
+    if rlog is not None:
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        spec_cols = ((_i32sum(sh_r), _i32sum(sw_r)) if speculate
+                     else (zero, zero))
+        rlog[t] = torch.stack([
+            _i32sum(active), _i32sum(cold), _i32sum(hot),
+            _i32sum(joined), _i32sum(joined_x),
+            torch.tensor(int(fired), dtype=torch.int32, device=dev),
+            *spec_cols])
+    rnd.end()                                                # round.account
+
+    # --- fold the exact-ranked residents into the results
+    f_valid = torch.repeat_interleave(f_active, eps, dim=1)
+    slot_valid = (vid >= 0) & f_valid
+    dd_m = dd.masked_fill(~slot_valid, _INF)
+    st["res_key"], st["res_id"] = _merge_top(
+        st["res_key"], st["res_id"], dd_m,
+        vid.masked_fill(~slot_valid, -1), res_size)
+    rnd.end()                                                # round.fold
+
+    # --- block pruning: targets + top-((eps-1)*sigma), in the
+    # expansion order the round stage ranked
+    is_target = (vid[:, :, None] == u[:, None, :]).any(-1) & (vid >= 0)
+    sel_key = dd_m.masked_fill(is_target, -_INF)
+    order_l = order.long()
+    ex_id = torch.gather(vid, 1, order_l)
+    ex_valid = ((torch.gather(sel_key, 1, order_l) < _INF)
+                & active[:, None] & (ex_id >= 0))
+    ex_new = ex_valid & ~_bit_get(visited, ex_id.clamp_min(0))
+    for j in range(n_expand):                                # mark expanded
+        _bit_set(visited, ex_id[:, j].clamp_min(0), ex_new[:, j])
+    rnd.end()                                                # round.expand
+
+    # --- collect neighbours of expanded slots, route by PQ
+    ex_nbrs = torch.gather(
+        nbrs, 1, order_l[:, :, None].expand(-1, -1, nbrs.shape[2]))
+    flat = ex_nbrs.reshape(qn, -1)
+    f_ok = ((flat >= 0)
+            & torch.repeat_interleave(ex_new, ex_nbrs.shape[2], dim=1)
+            & active[:, None])
+    f_safe = flat.clamp_min(0)
+    f_ok &= ~_bit_get(visited, f_safe)                       # skip expanded
+    f_codes = ds.pq_codes[f_safe.long()]                     # [Q, X, M]
+    f_key = _adc(lut_r, f_codes).masked_fill(~f_ok, _INF)
+    f_id = flat.masked_fill(~f_ok, -1)
+    if speculate:
+        # stage the next round's prediction from the neighbours this
+        # round just routed (hot-pack blocks and duplicates dropped)
+        p_key, p_pick = torch.sort(f_key, dim=1, stable=True)
+        p_key, p_pick = p_key[:, :fw], p_pick[:, :fw]
+        p_id = torch.gather(f_id, 1, p_pick)
+        p_ok = torch.isfinite(p_key) & (p_id >= 0) & active[:, None]
+        p_blk = torch.where(p_ok, ds.block_of[p_id.long().clamp_min(0)],
+                            torch.full_like(p_id, -1))
+        p_hot = ds.hot_slot_of[p_blk.long().clamp_min(0)] >= 0
+        p_blk = p_blk.masked_fill(p_hot & (p_blk >= 0), -1)
+        dup = ((p_blk[:, :, None] == p_blk[:, None, :])
+               & (ar_fw[None, :, None] > ar_fw[None, None, :])).any(-1)
+        st["spec_blk"] = p_blk.masked_fill(dup & (p_blk >= 0),
+                                           -1).to(torch.int32)
+    rnd.end()                                                # round.route
+
+    st["cand_key"], st["cand_id"] = _merge_top(
+        st["cand_key"], cand_id, f_key, f_id, candidates)
+    st["open_key"] = _open_keys(st["cand_id"], st["cand_key"], visited)
+
+
+# ------------------------------------------------------- the round graph
+
+class RoundGraphCache:
+    """The round graphs (``_RoundGraph``) by ``_graph_key``, at most
+    ``capacity`` of them: the least recently used is dropped first, so
+    one-off batch shapes cannot pile up device memory."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self.entries = collections.OrderedDict()
+        self.enabled = True
+
+    def get(self, key, make):
+        """The entry under ``key``, made by ``make()`` if there is none;
+        it becomes the most recently used."""
+        entry = self.entries.pop(key, None)
+        if entry is None:
+            entry = make()
+        self.entries[key] = entry
+        while len(self.entries) > self.capacity:
+            self.entries.popitem(last=False)
+        return entry
+
+
+# one entry a segment of a query node of four (an entry holds two sets of
+# a batch's state: 1.1 GB at 1M vectors and 4,096 queries)
+_ROUND_GRAPHS = RoundGraphCache(4)
+
+
+@contextlib.contextmanager
+def _eager_rounds():
+    """Every round inside the block runs eagerly (the eager side of the
+    card tests' comparison)."""
+    was, _ROUND_GRAPHS.enabled = _ROUND_GRAPHS.enabled, False
+    try:
+        yield
+    finally:
+        _ROUND_GRAPHS.enabled = was
+
+
+def _graphs_on(dev: torch.device, fetch_impl: str, trace: bool) -> bool:
+    return (_ROUND_GRAPHS.enabled and dev.type == "cuda"
+            and fetch_impl == "fused" and not trace)
+
+
+def _graph_key(ds: DeviceSegment, st: dict, names, **knobs) -> tuple:
+    """What a round graph is bound to: the device, the shapes and dtypes
+    of the state arrays ``names``, the knobs that shape a round, and the
+    segment arrays the graph reads, by address (the entry holds them,
+    so no other array can take their address while it lives)."""
+    read = (ds.pq_codes, ds.block_of, ds.hot_slot_of)
+    return (str(ds.device),
+            tuple((n, tuple(st[n].shape), st[n].dtype) for n in names),
+            tuple((a.data_ptr(), tuple(a.shape), a.stride(), a.dtype)
+                  for a in read),
+            tuple(sorted(knobs.items())))
+
+
+def _capture_graphs(fns) -> list:
+    """One CUDA graph of each callable, captured in turn into one memory
+    pool: a graph's own allocations live only within one replay, and
+    the graphs never run at once. A call that is unsafe under capture
+    (a sync, a host copy) fails in the capturing thread; other threads'
+    calls, such as a process group's watchdog polling its events, do
+    not void the capture."""
+    pool = torch.cuda.graph_pool_handle()
+    graphs = []
+    for fn in fns:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, pool=pool,
+                              capture_error_mode="thread_local"):
+            fn()
+        graphs.append(g)
+    return graphs
+
+
+class _RoundGraph:
+    """A round's pick and its post-stage phases (``_post_stage``) as two
+    CUDA graphs over static buffers: one set of the per-query state
+    arrays ``names``, two with compaction (a compaction that fires
+    gathers each array once into the other set, and each set has its
+    graphs), and the round's inputs, which the pick graph writes and
+    the stage's outputs are copied into. The first round run through an
+    entry runs eagerly on its buffers, which loads every kernel, then
+    the graphs are captured."""
+
+    def __init__(self, st: dict, names, sets: int):
+        self.sets = [{n: torch.empty_like(st[n]) for n in names}
+                     for _ in range(sets)]
+        self.inp: dict = {}
+        self.cur = 0
+        self.graphs = None        # (pick, post) a set
+        self.fns = None           # what the graphs read outside their pool
+
+    def load(self, st: dict) -> None:
+        """Copies a search's state into the first set; ``st``'s entries
+        become its buffers."""
+        self.cur = 0
+        bufs = self.sets[0]
+        for n, buf in bufs.items():
+            buf.copy_(st[n])
+        st.update(bufs)
+
+    def permute(self, st: dict, ordr: torch.Tensor) -> None:
+        """The compaction: every array gathered by ``ordr`` into the
+        other set, which becomes the current one."""
+        src, self.cur = self.sets[self.cur], 1 - self.cur
+        dst = self.sets[self.cur]
+        for n, buf in dst.items():
+            torch.index_select(src[n], 0, ordr, out=buf)
+        st.update(dst)
+
+    def feed(self, **xs) -> None:
+        """Copies round inputs into their static buffers."""
+        for n, x in xs.items():
+            if n not in self.inp:
+                self.inp[n] = torch.empty_like(x)
+            self.inp[n].copy_(x)
+
+    def _pick(self, pick, bufs: dict) -> None:
+        self.feed(**pick(bufs))
+
+    def _post(self, post, bufs: dict, rnd) -> None:
+        work = dict(bufs)
+        post(work, self.inp, rnd)
+        for n, x in work.items():
+            if x is not bufs[n]:
+                bufs[n].copy_(x)
+
+    def pick(self, pick) -> torch.Tensor:
+        """The pick on the current set, into the round's inputs. Returns
+        a copy of ``u`` for the stage: the next replay overwrites the
+        static one, and a caller of the stage may keep what it got."""
+        if self.graphs is None:
+            self._pick(pick, self.sets[self.cur])
+        else:
+            self.graphs[self.cur][0].replay()
+        return self.inp["u"].clone()
+
+    def step(self, pick, post, rnd) -> bool:
+        """The post-stage phases on the current set; True where the
+        round was replayed from the graphs."""
+        if self.graphs is None:
+            self._post(post, self.sets[self.cur], rnd)
+            self.fns = [fn for bufs in self.sets for fn in (
+                functools.partial(self._pick, pick, bufs),
+                functools.partial(self._post, post, bufs, _NO_ROUND_SPANS))]
+            graphs = _capture_graphs(self.fns)
+            self.graphs = list(zip(graphs[::2], graphs[1::2]))
+            return False
+        for _ in ROUND_PHASES[3:-1]:     # account, fold, expand, route
+            rnd.end()
+        self.graphs[self.cur][1].replay()
+        return True
+
+
 def _block_search_loop(ds: DeviceSegment, queries: torch.Tensor, lut,
                        state, *, res_size: int, candidates: int,
                        sigma: float, max_hops: int, metric: str,
@@ -504,16 +796,24 @@ def _block_search_loop(ds: DeviceSegment, queries: torch.Tensor, lut,
     """The batched best-first block search from a carried state.
 
     ``state`` = dict with cand_id, cand_key, open_key, visited, res_id,
-    res_key, io, t0, hops, saved, saved_x (per query), t and syncs (host
-    ints). Returns ``(state, round_log)``; see ``repro.core.device_search.
-    _block_search_loop`` for the meaning of every knob. The round log
-    is None when ``trace`` is off; results and counters are the same
-    for every setting of ``compact_frac``, ``trace``, ``speculate``,
-    ``pipeline_dma``, ``fuse_union`` and ``tracer`` (an ``obs.Tracer``:
-    the ``search.round`` and ``sync.*`` spans). ``syncs`` grows by the
+    res_key, io, t0, hops, saved, saved_x (per query), t, syncs and
+    graph_rounds (host ints). Returns ``(state, round_log)``; see
+    ``repro.core.device_search._block_search_loop`` for the meaning of
+    every knob. The round log is None when ``trace`` is off; results
+    and counters are the same for every setting of ``compact_frac``,
+    ``trace``, ``speculate``, ``pipeline_dma``, ``fuse_union`` and
+    ``tracer`` (an ``obs.Tracer``: the ``search.round`` and ``sync.*``
+    spans), and with or without the round graph. ``syncs`` grows by the
     loop's blocking reads: a loop test a round and one more that ends
     the loop (none when it stops at ``max_hops``), and with compaction
-    two tests a round (one when the batch has a single query)."""
+    two tests a round (one when the batch has a single query);
+    ``graph_rounds`` by the rounds replayed from a graph.
+
+    On a CUDA device with ``fetch_impl='fused'`` and without ``trace``
+    (whose round log takes a row by the host's ``t``), a round's pick
+    and its post-stage phases run as two CUDA graphs (``_RoundGraph``),
+    bound to the batch's shapes, the knobs and the segment's arrays;
+    the returned arrays never alias their buffers."""
     qn = queries.shape[0]
     dev = queries.device
     eps = ds.vid.shape[1]
@@ -522,6 +822,7 @@ def _block_search_loop(ds: DeviceSegment, queries: torch.Tensor, lut,
     tile = K.round_tile(qn, round_tile_cap)
     compact = compact_frac > 0.0
     st = dict(state)
+    st["q_r"], st["lut_r"] = queries, lut
     per_query = ["cand_id", "cand_key", "open_key", "visited", "res_id",
                  "res_key", "io", "t0", "hops", "saved", "saved_x"]
     if speculate:
@@ -532,14 +833,29 @@ def _block_search_loop(ds: DeviceSegment, queries: torch.Tensor, lut,
         per_query += ["spec_h", "spec_w", "spec_blk"]
     if compact:
         st["perm"] = torch.arange(qn, dtype=torch.int32, device=dev)
-        st["q_r"], st["lut_r"] = queries, lut
         per_query += ["perm", "q_r", "lut_r"]
     rlog = (torch.zeros((max_hops, len(_ROUND_LOG_COLS)), dtype=torch.int32,
                         device=dev) if trace else None)
     ar_fw = torch.arange(fw, device=dev)
+    pick = functools.partial(_pick, ds, fw)
+    post = functools.partial(
+        _post_stage, ds, tile=tile, n_expand=n_expand, res_size=res_size,
+        candidates=candidates, speculate=speculate, ar_fw=ar_fw, rlog=rlog)
+
+    graph = None
+    if _graphs_on(dev, fetch_impl, trace):
+        static = per_query + [n for n in ("q_r", "lut_r")
+                              if n not in per_query]
+        key = _graph_key(ds, st, static, tile=tile, n_expand=n_expand,
+                         fw=fw, eps=eps, lam=ds.nbrs.shape[2],
+                         speculate=speculate)
+        graph = _ROUND_GRAPHS.get(
+            key, lambda: _RoundGraph(st, static, 2 if compact else 1))
+        graph.load(st)
 
     reads = HostSyncs(tracer)
     rnd = RoundSpans(tracer) if tracer is not None else _NO_ROUND_SPANS
+    graph_rounds = 0
     while st["t"] < max_hops and reads.read(
             "loop", bool, torch.isfinite(st["open_key"]).any()):
         t = st["t"]
@@ -556,122 +872,51 @@ def _block_search_loop(ds: DeviceSegment, queries: torch.Tensor, lut,
             if fired:
                 # stable: live first, original order within each group
                 ordr = torch.argsort((~live).to(torch.int8), stable=True)
-                for name in per_query:
-                    st[name] = st[name][ordr]
-            q_r, lut_r = st["q_r"], st["lut_r"]
-        else:
-            q_r, lut_r = queries, lut
-        cand_id, open_key = st["cand_id"], st["open_key"]
-        visited = st["visited"]
+                if graph is None:
+                    for name in per_query:
+                        st[name] = st[name][ordr]
+                else:
+                    graph.permute(st, ordr)
         rnd.end()                                            # round.compact
 
         # --- pick the F best open candidates per query
-        u, f_active = pick_candidates(cand_id, open_key, fw)
-        active = f_active[:, 0]
-        b = ds.block_of[u.long().clamp_min(0)]               # [Q, F]
+        if graph is None:
+            x = pick(st)
+            u = x["u"]
+        else:
+            u = graph.pick(pick)
         rnd.end()                                            # round.pick
 
         # --- round stage: tier-0 probe, batch union + gather, rank
         vid, nbrs, dd, hit, order = _round_stage(
-            ds, q_r, u, metric, fetch_impl, n_expand, tile, pipeline_dma,
-            fuse_union)
+            ds, st["q_r"], u, metric, fetch_impl, n_expand, tile,
+            pipeline_dma, fuse_union)
+        if graph is None:
+            x.update(vid=vid, nbrs=nbrs, dd=dd, hit=hit, order=order)
+        else:
+            graph.feed(vid=vid, nbrs=nbrs, dd=dd, hit=hit, order=order)
         rnd.end()                                            # round.stage
-        hot = hit.to(torch.bool) & f_active
-        cold = f_active & ~hot
-        joined, joined_x = _dedup_joins(b, cold, tile)       # [Q, F]
-        st["io"] = st["io"] + _i32sum(cold, 1)
-        st["t0"] = st["t0"] + _i32sum(hot, 1)
-        st["saved"] = st["saved"] + _i32sum(joined, 1)
-        st["saved_x"] = st["saved_x"] + _i32sum(joined_x, 1)
-        st["hops"] = st["hops"] + active.to(torch.int32)
 
-        if speculate:
-            # consume the prediction the previous round staged
-            spec_blk = st["spec_blk"]
-            pred_match = (b[:, :, None] == spec_blk[:, None, :]).any(-1)
-            hit_spec = cold & ~joined & pred_match
-            cold_b = torch.where(cold, b, torch.full_like(b, -1))
-            used = ((spec_blk[:, :, None] == cold_b[:, None, :]).any(-1)
-                    & (spec_blk >= 0))
-            sh_r = _i32sum(hit_spec, 1)
-            sw_r = _i32sum((spec_blk >= 0) & ~used, 1)
-            st["spec_h"] = st["spec_h"] + sh_r
-            st["spec_w"] = st["spec_w"] + sw_r
-
-        if trace:
-            zero = torch.zeros((), dtype=torch.int32, device=dev)
-            spec_cols = ((_i32sum(sh_r), _i32sum(sw_r)) if speculate
-                         else (zero, zero))
-            rlog[t] = torch.stack([
-                _i32sum(active), _i32sum(cold), _i32sum(hot),
-                _i32sum(joined), _i32sum(joined_x),
-                torch.tensor(int(fired), dtype=torch.int32, device=dev),
-                *spec_cols])
-        rnd.end()                                            # round.account
-
-        # --- fold the exact-ranked residents into the results
-        f_valid = torch.repeat_interleave(f_active, eps, dim=1)
-        slot_valid = (vid >= 0) & f_valid
-        dd_m = dd.masked_fill(~slot_valid, _INF)
-        st["res_key"], st["res_id"] = _merge_top(
-            st["res_key"], st["res_id"], dd_m,
-            vid.masked_fill(~slot_valid, -1), res_size)
-        rnd.end()                                            # round.fold
-
-        # --- block pruning: targets + top-((eps-1)*sigma), in the
-        # expansion order the round stage ranked
-        is_target = (vid[:, :, None] == u[:, None, :]).any(-1) & (vid >= 0)
-        sel_key = dd_m.masked_fill(is_target, -_INF)
-        order_l = order.long()
-        ex_id = torch.gather(vid, 1, order_l)
-        ex_valid = ((torch.gather(sel_key, 1, order_l) < _INF)
-                    & active[:, None] & (ex_id >= 0))
-        ex_new = ex_valid & ~_bit_get(visited, ex_id.clamp_min(0))
-        for j in range(n_expand):                            # mark expanded
-            _bit_set(visited, ex_id[:, j].clamp_min(0), ex_new[:, j])
-        rnd.end()                                            # round.expand
-
-        # --- collect neighbours of expanded slots, route by PQ
-        ex_nbrs = torch.gather(
-            nbrs, 1, order_l[:, :, None].expand(-1, -1, nbrs.shape[2]))
-        flat = ex_nbrs.reshape(qn, -1)
-        f_ok = ((flat >= 0)
-                & torch.repeat_interleave(ex_new, ex_nbrs.shape[2], dim=1)
-                & active[:, None])
-        f_safe = flat.clamp_min(0)
-        f_ok &= ~_bit_get(visited, f_safe)                   # skip expanded
-        f_codes = ds.pq_codes[f_safe.long()]                 # [Q, X, M]
-        f_key = _adc(lut_r, f_codes).masked_fill(~f_ok, _INF)
-        f_id = flat.masked_fill(~f_ok, -1)
-        if speculate:
-            # stage the next round's prediction from the neighbours this
-            # round just routed (hot-pack blocks and duplicates dropped)
-            p_key, p_pick = torch.sort(f_key, dim=1, stable=True)
-            p_key, p_pick = p_key[:, :fw], p_pick[:, :fw]
-            p_id = torch.gather(f_id, 1, p_pick)
-            p_ok = torch.isfinite(p_key) & (p_id >= 0) & active[:, None]
-            p_blk = torch.where(p_ok, ds.block_of[p_id.long().clamp_min(0)],
-                                torch.full_like(p_id, -1))
-            p_hot = ds.hot_slot_of[p_blk.long().clamp_min(0)] >= 0
-            p_blk = p_blk.masked_fill(p_hot & (p_blk >= 0), -1)
-            dup = ((p_blk[:, :, None] == p_blk[:, None, :])
-                   & (ar_fw[None, :, None] > ar_fw[None, None, :])).any(-1)
-            st["spec_blk"] = p_blk.masked_fill(dup & (p_blk >= 0),
-                                               -1).to(torch.int32)
-        rnd.end()                                            # round.route
-
-        st["cand_key"], st["cand_id"] = _merge_top(
-            st["cand_key"], cand_id, f_key, f_id, candidates)
-        st["open_key"] = _open_keys(st["cand_id"], st["cand_key"], visited)
+        if graph is None:
+            post(st, x, rnd, t=t, fired=fired)
+            replayed = False
+        else:
+            replayed = graph.step(pick, post, rnd)
         rnd.end()                                            # round.merge
-        rnd.close(t, fired)
+        rnd.close(t, fired, replayed)
+        graph_rounds += replayed
         st["t"] = t + 1
 
     if compact:
         inv = torch.argsort(st["perm"].long())   # undo the compaction
         for name in per_query:
             st[name] = st[name][inv]
+    elif graph is not None:
+        for name in per_query:                   # the next search's buffers
+            st[name] = st[name].clone()
+        st["q_r"], st["lut_r"] = queries, lut
     st["syncs"] = st["syncs"] + reads.count
+    st["graph_rounds"] = st["graph_rounds"] + graph_rounds
     return st, rlog
 
 
@@ -721,7 +966,8 @@ def initial_state(ds: DeviceSegment, queries: torch.Tensor,
                                   device=dev),
              "res_key": torch.full((qn, res_size), _INF, device=dev),
              "io": zeros(), "t0": zeros(), "hops": zeros(),
-             "saved": zeros(), "saved_x": zeros(), "t": 0, "syncs": 0}
+             "saved": zeros(), "saved_x": zeros(), "t": 0, "syncs": 0,
+             "graph_rounds": 0}
     return queries, lut, state
 
 
@@ -760,7 +1006,7 @@ def device_anns(ds: DeviceSegment, queries: torch.Tensor,
     return DeviceSearchResult(st["res_id"][:, : p.k], st["res_key"][:, : p.k],
                               st["io"], st["hops"], st["t0"], st["saved"],
                               st["saved_x"], spec_h, spec_w, st["t"], rlog,
-                              st["syncs"])
+                              st["syncs"], st["graph_rounds"])
 
 
 # ---------------------------------------------------------- range search
@@ -821,7 +1067,7 @@ def device_range_search(ds: DeviceSegment, queries: torch.Tensor,
                  "open_key": _open_keys(cand_id, cand_key, visited),
                  "visited": visited, "res_id": r_id, "res_key": r_key,
                  "io": io, "t0": t0, "hops": hops, "saved": saved,
-                 "saved_x": saved_x, "t": 0, "syncs": 0}
+                 "saved_x": saved_x, "t": 0, "syncs": 0, "graph_rounds": 0}
         # the round log stays off: the loop re-enters each round
         st, _ = _block_search_loop(
             ds, queries, lut, state, res_size=res_size, candidates=c,

@@ -96,7 +96,9 @@ class SegmentServer:
     tracer or without: per segment search of R rounds, R + 1 loop tests
     (R when it stops at ``max_hops``), 2R compaction tests with
     ``compact_frac`` > 0 (R for a one-query batch) and nine copies of
-    the results (ten with ``trace_rounds``)."""
+    the results (ten with ``trace_rounds``); its ``graph_rounds`` count
+    the rounds replayed from the round loop's CUDA graphs (none on the
+    CPU)."""
     segment: DeviceSegment
     offset: int                   # base of this segment's id space
     num_vectors: int
@@ -184,6 +186,7 @@ class SegmentServer:
         self.last_spec_hits = host(r.spec_hits)
         self.last_spec_wasted = host(r.spec_wasted)
         self.last_rounds = int(r.rounds)
+        self.last_graph_rounds = int(r.graph_rounds)
         self.last_round_log = (host(r.round_log)
                                if r.round_log is not None else None)
         out = host(r.ids), host(r.dists)
@@ -217,6 +220,7 @@ class SegmentServer:
                 "spec_wasted": self.last_spec_wasted,
                 "hot_tier_hits": self.last_hot_tier_hits,
                 "rounds": self.last_rounds,
+                "graph_rounds": self.last_graph_rounds,
                 "syncs": self.last_syncs,
                 "dma_pipelined": (self.params.pipeline_dma
                                   and self.params.fetch_impl == "fused"),

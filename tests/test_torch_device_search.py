@@ -309,8 +309,9 @@ def test_segment_server_matches_jax(jds, tds, small_data):
     assert same.mean() >= 0.95
     np.testing.assert_array_equal(tio[same], jio[same])
     jst, tst = js.batch_stats(), ts.batch_stats()
-    # the port's one key more: its blocking reads of device values
-    assert set(tst) == set(jst) | {"syncs"}
+    # the port's keys more: its blocking reads of device values and its
+    # rounds replayed from a graph
+    assert set(tst) == set(jst) | {"syncs", "graph_rounds"}
     for name, v in jst.items():
         if isinstance(v, np.ndarray):
             np.testing.assert_array_equal(tst[name][same], v[same],

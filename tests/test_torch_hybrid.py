@@ -195,8 +195,9 @@ def test_hybrid_server_with_tombstones_matches_jax(setup):
     np.testing.assert_array_equal(tio, jio)
     assert not np.isin(ti, victims).any()
     jst, tst = js.batch_stats(), ts.batch_stats()
-    # the port's one key more: its blocking reads of device values
-    assert set(tst) == set(jst) | {"syncs"}
+    # the port's keys more: its blocking reads of device values and its
+    # rounds replayed from a graph
+    assert set(tst) == set(jst) | {"syncs", "graph_rounds"}
     for name, v in jst.items():
         if isinstance(v, np.ndarray):
             np.testing.assert_array_equal(tst[name], v, err_msg=name)

@@ -178,7 +178,7 @@ def test_round_spans_read_the_clock_once_a_phase_end():
     assert (e.name, e.cat, e.ph, e.track) == ("search.round", "search", "X",
                                               TDS.SEARCH_TRACK)
     assert e.ts_us == 0.0 and e.dur_us == len(PHASES)
-    assert e.args == {"t": 7, "fired": True,
+    assert e.args == {"t": 7, "fired": True, "graph": False,
                       "phases": tuple(float(i) for i in range(1, 9))}
     assert tr.clock.now_us() == len(PHASES) + 1     # nine reads in all
     # without a tracer the loop's phase ends do nothing
