@@ -3,9 +3,11 @@ comparison that decides ``correct``.
 
 Everything that belongs to one configuration, traffic mix or metric is
 found by its name: ``configs/<config>.json`` (which names its
-``system`` and ``reference``), ``traffic/<traffic>.json`` (which names
-its ``loop``), ``systems/<system>.py``, ``loops/<loop>.py``,
-``references/<reference>.py`` and ``metrics/<metric>.py``.
+``system`` and ``reference``, and in its ``data`` group its
+``generator``), ``traffic/<traffic>.json`` (which names its ``loop``),
+``systems/<system>.py``, ``generators/<generator>.py``,
+``loops/<loop>.py``, ``references/<reference>.py`` and
+``metrics/<metric>.py``.
 """
 from __future__ import annotations
 
@@ -43,6 +45,26 @@ def plugin(kind: str, name: str):
     sys.modules[mod_name] = mod
     spec.loader.exec_module(mod)
     return mod
+
+
+def data_source(spec: dict):
+    """The generator that a configuration's ``data`` group names."""
+    if "generator" not in spec:
+        raise KeyError('the configuration\'s "data" group names no '
+                       '"generator" (segbench/generators/<name>.py)')
+    return plugin("generators", spec["generator"])
+
+
+def rows(cfg: dict, seed: int, pool_n: int, warm_n: int, device):
+    """(base [N, D], pool [pool_n, D], warm [warm_n, D]) f32 numpy: the
+    configuration's base rows, and the run's query pool and warm-up
+    rows, from the generator its ``data`` group names."""
+    spec = cfg["data"]
+    gen = data_source(spec)
+    base = gen.base(spec, sum(cfg["segments"]), device).cpu().numpy()
+    pool = gen.queries(spec, pool_n, seed, "queries", device).cpu().numpy()
+    warm = gen.queries(spec, warm_n, seed, "warmup", device).cpu().numpy()
+    return base, pool, warm
 
 
 @dataclasses.dataclass
@@ -260,20 +282,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     cfg, traffic = cell.config, cell.traffic
     loop = plugin("loops", traffic["loop"])
     ref = plugin("references", cfg["reference"])
-    spec = cfg["data"]
-    n = sum(cfg["segments"])
-    dim = spec["dim"]
     k = traffic["k"]
     dev = torch.device(device)
 
     # set-up: data, the system, warm-up of the traffic's shapes
-    mix = data.mixture(spec, spec["data_seed"], dev)
-    base = data.base_rows(mix, spec, n, dev).cpu().numpy()
     pool_n = loop.pool_size(traffic, seconds)
-    pool = data.sample(mix, spec, pool_n, seed, "queries", dev).cpu().numpy()
-    shapes = loop.warm_shapes(traffic, dim)
-    warm = data.sample(mix, spec, max(shapes), seed, "warmup", dev
-                       ).cpu().numpy()
+    shapes = loop.warm_shapes(traffic, cfg["data"]["dim"])
+    base, pool, warm = rows(cfg, seed, pool_n, max(shapes), dev)
     tracer = None
     if trace:
         from repro_torch.obs import Tracer, WallClock

@@ -21,23 +21,19 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
     from repro_torch.data.vectors import clustered_vectors, query_set
-    from segbench import data, harness
+    from segbench import harness
 
     cfg = harness.load_cell("bigann-1m.stream").config
     system = harness.plugin("systems", cfg["system"])
     ref = harness.plugin("references", cfg["reference"])
     dev = torch.device("cuda")
-    spec = cfg["data"]
     n, k = cfg["n"], cfg["search"]["k"]
-    mix = data.mixture(spec, spec["data_seed"], dev)
     sets = {
         "clustered_vectors": lambda: (
-            clustered_vectors(n, spec["dim"], seed=args.seed),
+            clustered_vectors(n, cfg["data"]["dim"], seed=args.seed),
             None),
-        "segbench": lambda: (
-            data.base_rows(mix, spec, n, dev).cpu().numpy(),
-            data.sample(mix, spec, args.queries, args.seed, "queries", dev
-                        ).cpu().numpy())}
+        "segbench": lambda: harness.rows(cfg, args.seed, args.queries, 0,
+                                         dev)[:2]}
     for name, make in sets.items():
         x, q = make()
         if q is None:

@@ -168,15 +168,12 @@ def oncost(cell, seed: int, pairs: int, device: str, log=print) -> dict:
     untraced and traced searches in turns (see above)."""
     import torch
     from repro_torch.obs import Tracer, WallClock
-    from segbench import data, harness
+    from segbench import harness
     cfg, traffic = cell.config, cell.traffic
-    spec = cfg["data"]
     dev = torch.device(device)
-    mix = data.mixture(spec, spec["data_seed"], dev)
-    base = data.base_rows(mix, spec, sum(cfg["segments"]), dev).cpu().numpy()
     shape = max(harness.plugin("loops", traffic["loop"]).warm_shapes(
-        traffic, spec["dim"]))
-    q = data.sample(mix, spec, shape, seed, "queries", dev).cpu().numpy()
+        traffic, cfg["data"]["dim"]))
+    base, q, _ = harness.rows(cfg, seed, shape, 0, dev)
     node = harness.plugin("systems", cfg["system"]).build(cfg, base, dev)
     tracer = Tracer(WallClock())
     k = traffic["k"]

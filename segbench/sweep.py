@@ -31,7 +31,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
-    from segbench import data, harness
+    from segbench import harness
     if not torch.cuda.is_available():
         print("segbench.sweep: no CUDA card", file=sys.stderr)
         return 2
@@ -40,13 +40,10 @@ def main(argv=None) -> int:
     loop = harness.plugin("loops", traffic["loop"])
     dev = torch.device("cuda")
     spec = cfg["data"]
-    mix = data.mixture(spec, spec["data_seed"], dev)
-    base = data.base_rows(mix, spec, cfg["n"], dev).cpu().numpy()
-    node = harness.plugin("systems", cfg["system"]).build(cfg, base, dev)
     shapes = loop.warm_shapes(traffic, spec["dim"])
     seeds = [int(x) for x in args.seeds.split(",")]
-    warm = data.sample(mix, spec, max(shapes), seeds[0], "warmup", dev
-                       ).cpu().numpy()
+    base, _, warm = harness.rows(cfg, seeds[0], 0, max(shapes), dev)
+    node = harness.plugin("systems", cfg["system"]).build(cfg, base, dev)
     for b in shapes:
         node.search(warm[:b], traffic["k"])
     print(json.dumps({"setup_s": time.perf_counter() - T_START,
@@ -56,8 +53,8 @@ def main(argv=None) -> int:
                        for r in args.rates.split(",")]:
         tr = dict(traffic, rate_qps=rate)
         n = loop.pool_size(tr, s)
-        pool = data.sample(mix, spec, n, seed, f"queries-{rate}", dev
-                           ).cpu().numpy()
+        pool = harness.data_source(spec).queries(
+            spec, n, seed, f"queries-{rate}", dev).cpu().numpy()
         rec = harness.Recorder(n, traffic["k"])
         loop.run(node, tr, pool, s, seed, rec, drain_s=0.0)
         a, d, done = rec.arrival, rec.dispatch, rec.done

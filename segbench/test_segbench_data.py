@@ -1,33 +1,33 @@
-"""The generator and the plain reference, on the CPU at a tiny size."""
+"""The SIFT-shaped generator and the plain reference, on the CPU at a tiny
+size."""
 import numpy as np
 import pytest
 import torch
 
-from segbench import data, harness
+from segbench import harness
+from segbench.generators import sift
 
 SPEC = harness.load_cell("bigann-1m.stream").config["data"]
 REF = harness.plugin("references", "exact_knn")
 
 
 def test_generator_is_deterministic_per_seed():
-    a = data.make(SPEC, 2 ** 31 + 7, 300, "cpu")
-    b = data.make(SPEC, 2 ** 31 + 7, 300, "cpu")
-    c = data.make(SPEC, 2 ** 31 + 8, 300, "cpu")
+    a = sift.queries(SPEC, 300, 2 ** 31 + 7, "queries", "cpu")
+    b = sift.queries(SPEC, 300, 2 ** 31 + 7, "queries", "cpu")
+    c = sift.queries(SPEC, 300, 2 ** 31 + 8, "queries", "cpu")
     assert torch.equal(a, b)
     assert not torch.equal(a, c)
 
 
 def test_the_base_set_is_the_configurations():
-    mix = data.mixture(SPEC, SPEC["data_seed"], "cpu")
-    a = data.base_rows(mix, SPEC, 400, "cpu")
-    assert torch.equal(a, data.base_rows(mix, SPEC, 400, "cpu"))
+    a = sift.base(SPEC, 400, "cpu")
+    assert torch.equal(a, sift.base(SPEC, 400, "cpu"))
     other = dict(SPEC, data_seed=SPEC["data_seed"] + 1)
-    assert not torch.equal(a, data.base_rows(
-        data.mixture(other, other["data_seed"], "cpu"), other, 400, "cpu"))
+    assert not torch.equal(a, sift.base(other, 400, "cpu"))
 
 
 def test_rows_are_sift_shaped_integers():
-    x = data.make(SPEC, 3, 2000, "cpu", "base")
+    x = sift.queries(SPEC, 2000, 3, "base", "cpu")
     assert x.shape == (2000, 128) and x.dtype == torch.float32
     assert torch.equal(x, torch.round(x))
     assert float(x.min()) >= 0 and float(x.max()) <= 255
@@ -36,9 +36,8 @@ def test_rows_are_sift_shaped_integers():
 
 
 def test_queries_are_never_base_rows():
-    mix = data.mixture(SPEC, SPEC["data_seed"], "cpu")
-    x = data.base_rows(mix, SPEC, 3000, "cpu").numpy()
-    q = data.sample(mix, SPEC, 500, 5, "queries", "cpu").numpy()
+    x = sift.base(SPEC, 3000, "cpu").numpy()
+    q = sift.queries(SPEC, 500, 5, "queries", "cpu").numpy()
     base_rows = {r.tobytes() for r in x}
     assert not any(r.tobytes() in base_rows for r in q)
     # the streams differ and share the mixture
@@ -46,8 +45,8 @@ def test_queries_are_never_base_rows():
 
 
 def test_exact_topk_matches_brute_force():
-    x = data.make(SPEC, 1, 700, "cpu", "base")
-    q = data.make(SPEC, 1, 40, "cpu", stream="queries")
+    x = sift.queries(SPEC, 700, 1, "base", "cpu")
+    q = sift.queries(SPEC, 40, 1, "queries", "cpu")
     ids, d = REF.exact_topk(x, q, 10, block=256)
     full = ((q.double()[:, None, :] - x.double()[None]) ** 2).sum(-1)
     want = torch.sort(full, 1).values[:, :10]
@@ -56,8 +55,8 @@ def test_exact_topk_matches_brute_force():
 
 
 def test_judge_counts_each_fault():
-    x = data.make(SPEC, 2, 600, "cpu", "base").numpy()
-    q = data.make(SPEC, 2, 30, "cpu", stream="queries").numpy()
+    x = sift.queries(SPEC, 600, 2, "base", "cpu").numpy()
+    q = sift.queries(SPEC, 30, 2, "queries", "cpu").numpy()
     ids, d = REF.exact_topk(torch.as_tensor(x), torch.as_tensor(q), 10)
     ids, d = ids.numpy(), d.numpy().astype(np.float32)
     sample = np.arange(30)
@@ -79,8 +78,8 @@ def test_judge_counts_each_fault():
 
 
 def test_bf16_control_departs_from_the_reference():
-    x = torch.as_tensor(data.make(SPEC, 4, 900, "cpu", "base"))
-    q = data.make(SPEC, 4, 64, "cpu", stream="queries")
+    x = sift.queries(SPEC, 900, 4, "base", "cpu")
+    q = sift.queries(SPEC, 64, 4, "queries", "cpu")
     ids, d = REF.control(x, q, 10)
     got = REF.judge(x.numpy(), q.numpy(), ids, d, np.arange(64), 10, "cpu")
     assert got["dist_gap"] > 1e-3

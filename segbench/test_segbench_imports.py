@@ -14,10 +14,10 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
 PROBE = r"""
 import json, sys, pathlib
 import segbench.run, segbench.harness, segbench.control, segbench.sweep
-import segbench.rehearsal, segbench.tiny
+import segbench.rehearsal, segbench.rehearsal_ip, segbench.tiny
 from segbench import harness, tiny
 here = pathlib.Path(harness.HERE)
-for kind in ("loops", "systems", "references", "metrics"):
+for kind in ("loops", "systems", "references", "metrics", "generators"):
     for f in sorted((here / kind).glob("*.py")):
         harness.plugin(kind, f.stem)
 import torch

@@ -1,6 +1,7 @@
 """The round-loop readers (``segbench.spans``) on hand-made spans, and
 the sub-window's idle and device time put down to the program's spans
 on hand-made intervals; ``spancheck``'s on-cost and report on tiny CPU runs."""
+import time
 from unittest import mock
 
 import pytest
@@ -171,6 +172,17 @@ def test_points_inside_intervals():
 
 def test_span_report_on_a_tiny_traced_run():
     c = tiny.cell("bigann-4x250k.bulk")
+    builds = tiny.Builds()
+    # the window from one timed untraced batch of the cell's shape, so
+    # that several batches fall after 0.6 of it (where the traced
+    # sub-window opens) however loaded the CPU is
+    base, q, _ = harness.rows(c.config, 2 ** 31 + 5, c.traffic["batch"], 0,
+                              "cpu")
+    node = builds(c.config, base, "cpu", None)
+    node.search(q, c.traffic["k"])
+    t0 = time.perf_counter()
+    node.search(q, c.traffic["k"])
+    seconds = max(5.0, 25 * (time.perf_counter() - t0))
     kept = {}
     reading = harness.device_reading
 
@@ -178,9 +190,10 @@ def test_span_report_on_a_tiny_traced_run():
         kept["sub"], kept["rec"] = sub, rec
         return reading(sub, rec)
     with mock.patch.object(harness, "device_reading", keep):
-        out = tiny.run(c, trace=True)
+        out = tiny.run(c, seconds=seconds, trace=True, builds=builds)
     assert out["correct"]
-    got = spancheck.span_report(kept["rec"], kept["sub"], 5.0, True)
+    assert kept["sub"].state == "closed"
+    got = spancheck.span_report(kept["rec"], kept["sub"], seconds, True)
     assert got["dropped"] == 0 and got["rounds"] > 0
     assert got["searches_off_formula"] == 0
     assert 0.9 < got["cover_of_coord_segment"] <= 1.0

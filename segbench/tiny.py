@@ -12,13 +12,17 @@ TRAFFIC = {"stream": {"rate_qps": 200, "buckets": [8, 32]},
 
 
 def cell(name: str, n: int = 600, max_hops: int = 16) -> harness.Cell:
-    c = harness.load_cell(name)
+    return cut(harness.load_cell(name), n, max_hops)
+
+
+def cut(c: harness.Cell, n: int = 600, max_hops: int = 16) -> harness.Cell:
+    """``c`` at a tiny size; its data group cut as its generator says."""
     cfg = copy.deepcopy(c.config)
     count = cfg["n"] // cfg["segment_n"]
     seg_n = n // count
     cfg.update(n=seg_n * count, segment_n=seg_n, segments=[seg_n] * count,
                recall_sample=64)
-    cfg["data"]["clusters"] = 16
+    cfg["data"] = harness.data_source(cfg["data"]).tiny(cfg["data"])
     # a short search, so that a loaded CPU still serves several batches
     cfg["search"].update(candidates=16, max_hops=max_hops)
     # the recall floor at this size, from its own readings: the program
